@@ -4,54 +4,89 @@
 
 Phases, each printing its elapsed seconds:
   1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
-  2. the build of every CUDA kernel of the path with ``nvcc`` (sm_90a);
-  3. the main path at the full width of the committed configurations, with
+  2. the build of every CUDA kernel with ``nvcc`` (sm_90a), one ``nvcc`` per
+     source, all started together;
+  3. the TTS path at the full width of the committed configurations, with
      weights made from a seed: ``VoiceCloningPipeline.tts_batch`` for three
      texts (English, Mandarin hanzi, tone-numbered pinyin) cloned from
      ``saved_models/gan_run/eval/ground_truth.wav`` through GE2E, Tacotron
      and the WaveRNN vocoder, ``steps`` capped at 200 (random weights never
-     meet the stop rule). Every kernel's launch count is set to 0 just
-     before and read just after; each kernel must have launched. Then a
-     second, warm pass times each stage of the path;
-  4. each kernel held against its plain PyTorch version on the card, on the
-     very inputs the main path gave it, with the stated tolerance, and
-     timed beside its plain version and a PyTorch yardstick;
-  5. one ``kernels`` JSON line, then the contract line
+     meet the stop rule); then a second, warm pass times each stage;
+  4. VITS serving: ``VitsSynthesizer`` at the width of
+     ``saved_models/vits_run/config.json``, seeded weights, the three texts,
+     ``max_frames`` 1000, float and int16 output, a warm pass by stage;
+  5. VITS training: ``train`` for ``TRAIN_STEPS`` steps of batch 16 in bf16
+     on a synthetic dataset whose one bucket is (900, 1000] frames with
+     texts of 100-160 symbols, so the alignment search runs at its largest
+     training shape (T_y 1000, T_x 160); the checkpoint it writes loads
+     back; then the trainer's own step (``make_vits_step``) timed by part
+     through module and optimizer hooks;
+  6. each kernel held against its plain PyTorch version on the card, with
+     the stated tolerance, and timed beside it: K2 (alignment search,
+     exactly equal) on the training step's own inputs and on ragged and
+     tied cases; K1 (WaveRNN sampler) and K1b (its fold-major layout) on
+     the TTS path's own inputs;
+  7. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
-Any failure raises and the script exits non-zero without the last line. It
-needs a CUDA card; without one it exits non-zero before any phase.
+Every path is driven with the kernels' launch counts set to 0 just before
+and read just after; each kernel of a path must have launched. Any failure
+raises and the script exits non-zero without the last line. It needs a
+CUDA card; without one it exits non-zero before any phase.
 """
 from __future__ import annotations
 
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from mockingbird_tpu_torch.config import Config
+from mockingbird_tpu_torch.models.vits import VitsSynthesizer, train as vits_train
+from mockingbird_tpu_torch.models.vits import model as vits_model_module
+from mockingbird_tpu_torch.models.vits.model import vits_config
+from mockingbird_tpu_torch.models.vits.train import (BUCKET_BOUNDARIES, BucketBatcher,
+                                                     VitsDataset, make_optimizer, make_vits_step,
+                                                     to_device)
 from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder
 from mockingbird_tpu_torch.models.vocoder import wavernn as wavernn_module
 from mockingbird_tpu_torch.ops import build
+from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
+                                                       maximum_path_plain)
 from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, wavernn_sample,
                                                       wavernn_sample_plain)
 from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
+from mockingbird_tpu_torch.text import text_to_sequence
+from mockingbird_tpu_torch.train.checkpoint import CheckpointManager
 
 ROOT = Path(__file__).resolve().parent
 REF_WAV = ROOT / "saved_models/gan_run/eval/ground_truth.wav"
 TACOTRON_JSON = ROOT / "saved_models/attention_run/synthesizer.json"
 WAVERNN_JSON = ROOT / "saved_models/wavernn_run/vocoder_wavernn.json"
+VITS_JSON = ROOT / "saved_models/vits_run/config.json"
 TEXTS = ["this voice was cloned from a short reference recording",
          "欢迎使用语音克隆，今天天气很好",
          "ni3 hao3, zhe4 shi4 yi2 ge4 ce4 shi4"]
 STEPS = 200
 DEVICE = "cuda"
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+KERNELS = ("wavernn_sample", "monotonic_align")
+# VITS training: 16 utterances of 900-1000 frames (bucket (900, 1000]),
+# texts of 100-160 symbols, the longest 160: T_y = 1000, T_x = 160
+TRAIN_STEPS = 3
+TRAIN_BATCH = 16
+TRAIN_FRAMES = (901, 1000)
+TRAIN_SYMBOLS = (100, 160)
+VITS_CFG: dict = {}          # overrides of the committed config (none on the card)
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
+# them, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # agreement, greedy and sampled: the first label where kernel and plain
 # differ must fall on a step whose top-2 score gap (noise included) in the
@@ -63,6 +98,18 @@ GAP_BF16 = 5e-2
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def zero_counts() -> None:
+    wavernn_sample.launches = wavernn_sample.launches_fold_major = 0
+    maximum_path_cuda.launches = 0
+
+
+def read_counts() -> dict:
+    """Each kernel's launches since ``zero_counts``."""
+    return {"wavernn_sample": wavernn_sample.launches,
+            "wavernn_sample(time_major=False)": wavernn_sample.launches_fold_major,
+            "maximum_path": maximum_path_cuda.launches}
 
 
 class Phase:
@@ -91,6 +138,25 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class Stages:
+    """Host-clock seconds of named stages, each ended by a synchronise."""
+
+    def __init__(self):
+        self.s = {}
+
+    def __call__(self, name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    def show(self):
+        for name, sec in self.s.items():
+            print(f"  {name}: {sec:.4f} s")
 
 
 def hold_labels(kernel: torch.Tensor, plain: torch.Tensor, gaps: torch.Tensor,
@@ -127,6 +193,404 @@ def tv_distance(a: torch.Tensor, b: torch.Tensor, n_classes: int) -> float:
     return 0.5 * float((ha / ha.sum() - hb / hb.sum()).abs().sum())
 
 
+def check_config(name: str, got, path: Path) -> None:
+    for key, want in Config.from_json(path).items():
+        check(list(got[key]) == list(want) if isinstance(want, list) else got[key] == want,
+              f"{name} {key}={got[key]}, committed config says {want}")
+
+
+# ---------------------------------------------------------------------------
+# the TTS path
+# ---------------------------------------------------------------------------
+
+def phase_tts(dev):
+    with Phase("TTS path: VoiceCloningPipeline.tts_batch, full width"):
+        pipe = VoiceCloningPipeline(vocoder=WaveRnnVocoder(verbose=False, seed=0, device=dev),
+                                    verbose=False, seed=0, device=dev)
+        pipe.synthesizer.load()
+        check_config("Tacotron", pipe.synthesizer.cfg, TACOTRON_JSON)
+        check_config("WaveRNN", pipe.vocoder.cfg, WAVERNN_JSON)
+        # record the sampler's inputs for the K1 phase; the count stays the wrapper's
+        captured = []
+
+        def recording(weights, mels, aux, seed, n_classes=512, greedy=False):
+            captured.append((mels, aux, seed, n_classes, greedy))
+            return wavernn_sample(weights, mels, aux, seed, n_classes, greedy)
+
+        wavernn_module.wavernn_sample = recording
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wavs = pipe.tts_batch(TEXTS, REF_WAV, steps=STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        wavernn_module.wavernn_sample = wavernn_sample
+        print(f"  launches on the TTS path: {launches}")
+        check(launches["wavernn_sample"] > 0, "K1 was not launched on the TTS path")
+        hop = pipe.vocoder.cfg.hop_size
+        for text, w in zip(TEXTS, wavs):
+            check(w.dtype == np.int16, f"waveform dtype {w.dtype}")
+            check(0 < len(w) <= (STEPS - 1) * hop and len(w) % hop == 0,
+                  f"waveform length {len(w)} for {text!r}")
+            check(int(np.abs(w.astype(np.int32)).max()) > 0, "silent waveform")
+        audio_s = sum(len(w) for w in wavs) / pipe.audio_cfg.sample_rate
+        print(f"  {len(wavs)} int16 waveforms, samples {[len(w) for w in wavs]}, "
+              f"{audio_s:.2f} s of audio in {wall:.2f} s wall")
+        embed = pipe.embed_reference(REF_WAV)
+        check(embed.shape == (256,) and abs(np.linalg.norm(embed) - 1) < 1e-4,
+              "GE2E embedding is not a unit 256-vector")
+
+    with Phase("TTS stage breakdown: a second, warm pass"):
+        st = Stages()
+        pipe._embed_cache.clear()
+        embed = st("embed_reference", lambda: pipe.embed_reference(REF_WAV))
+        specs = st("synthesize_spectrograms", lambda: pipe.synthesizer.synthesize_spectrograms(
+            TEXTS, np.tile(embed, (len(TEXTS), 1)), steps=STEPS))
+        st("infer_waveform_batch", lambda: pipe.vocoder.infer_waveform_batch(specs))
+        st.show()
+        print(f"  mel frames {[s.shape[1] for s in specs]}; "
+              f"{st.s['synthesize_spectrograms'] / (STEPS // 2) * 1e3:.2f} ms per decode "
+              f"step if all {STEPS // 2} ran")
+
+    with Phase("GE2E on the card against the CPU"):
+        from mockingbird_tpu_torch.models.encoder import SpeakerEncoderInference
+        cpu_enc = SpeakerEncoderInference(seed=0, device="cpu")
+        cpu_enc.model.load_state_dict({k: v.cpu() for k, v in
+                                       pipe.encoder.model.state_dict().items()})
+        ref = cpu_enc.embed_utterance(cpu_enc.preprocess_wav(REF_WAV))
+        err = float(np.abs(embed - ref).max())
+        print(f"  max |card - cpu| = {err:.3g} (tolerance 1e-4)")
+        check(err < 1e-4, f"GE2E embedding on the card differs from the CPU by {err}")
+    return pipe, captured, launches
+
+
+# ---------------------------------------------------------------------------
+# VITS serving and training
+# ---------------------------------------------------------------------------
+
+def phase_vits_serve(dev):
+    with Phase("VITS serve: VitsSynthesizer.synthesize, full width"):
+        syn = VitsSynthesizer(cfg=dict(Config.from_json(VITS_JSON), **VITS_CFG),
+                              verbose=False, seed=0, device=dev)
+        check_config("VITS", syn.cfg, VITS_JSON)
+        zero_counts()
+        t0 = time.perf_counter()
+        f32 = syn.synthesize(TEXTS, max_frames=1000)
+        i16 = syn.synthesize(TEXTS, max_frames=1000, pcm16=True)
+        cold = time.perf_counter() - t0
+        print(f"  launches on the serving path: {read_counts()} (inference needs no kernel)")
+        _, y_lengths = syn.synthesize_device(TEXTS, max_frames=1000)
+        y_lengths = y_lengths.cpu().numpy()
+        hop = syn.cfg.hop_size
+        for a, b, n in zip(f32, i16, y_lengths):
+            check(a.dtype == np.float32 and b.dtype == np.int16, "VITS output dtypes")
+            check(len(a) == len(b) == n * hop and 0 < n <= 1000,
+                  f"VITS lengths {len(a)}/{len(b)} for y_length {n}")
+            check(bool(np.isfinite(a).all()) and float(np.abs(a).max()) > 0,
+                  "VITS audio is not finite or silent")
+            q = np.round(np.clip(a, -1, 1) * 32767).astype(np.int32)
+            check(int(np.abs(q - b.astype(np.int32)).max()) <= 1,
+                  "int16 output differs from the float output")
+        audio_s = sum(len(a) for a in f32) / syn.cfg.sample_rate
+        print(f"  y_lengths {list(y_lengths)}, {audio_s:.2f} s of audio; cold float+int16 "
+              f"passes {cold:.3f} s")
+
+    with Phase("VITS serve: a warm pass, then one by module"):
+        st = Stages()
+        st("synthesize (float)", lambda: syn.synthesize(TEXTS, max_frames=1000))
+        warm = st.s["synthesize (float)"]
+        t0 = {}
+
+        def hooks(name, module):
+            def pre(*_):
+                torch.cuda.synchronize()
+                t0[name] = time.perf_counter()
+
+            def post(*_):
+                torch.cuda.synchronize()
+                st.s[name] = st.s.get(name, 0.0) + time.perf_counter() - t0[name]
+            return [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
+
+        handles = [h for name, label in (("enc_p", "text encoder"),
+                                         ("dp", "duration predictor (reverse flows)"),
+                                         ("flow", "flow (reverse)"), ("dec", "decoder"))
+                   for h in hooks(label, getattr(syn.model, name))]
+        st("synthesize (float), by module", lambda: syn.synthesize(TEXTS, max_frames=1000))
+        for h in handles:
+            h.remove()
+        st.show()
+        print(f"  warm RTF {audio_s / warm:.2f} ({audio_s:.2f} s of audio in {warm:.4f} s)")
+
+
+def _write_dataset(root: Path, cfg, seed: int = 0) -> None:
+    """``VitsDataset``'s layout: ``train.txt``, ``audio/*.npy`` (harmonic
+    tones with vibrato and noise, made from ``seed``), ``emo/`` empty."""
+    rng = np.random.RandomState(seed)
+    (root / "audio").mkdir(parents=True)
+    (root / "emo").mkdir()
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    rows = []
+    sym = np.linspace(TRAIN_SYMBOLS[0], TRAIN_SYMBOLS[1], TRAIN_BATCH).astype(int)
+    frames = np.linspace(TRAIN_FRAMES[0], TRAIN_FRAMES[1], TRAIN_BATCH).astype(int)
+    for i in range(TRAIN_BATCH):
+        chars = [letters[c] for c in rng.randint(0, 26, sym[i] - 1)]
+        for j in range(5, len(chars) - 1, 6):
+            chars[j] = " "
+        text = "".join(chars)
+        check(len(text_to_sequence(text)) == sym[i], "synthetic text length")
+        n = int(frames[i]) * cfg.hop_size
+        tt = np.arange(n) / cfg.sample_rate
+        f0 = rng.uniform(90, 250) * (1 + 0.05 * np.sin(2 * np.pi * rng.uniform(3, 6) * tt))
+        phase = 2 * np.pi * np.cumsum(f0) / cfg.sample_rate
+        wav = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6))
+        wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * tt) ** 2)
+        wav = (wav + 0.01 * rng.randn(n)).astype(np.float32)
+        name = f"audio-spk{i % 4}_{i:04d}.npy"
+        np.save(root / "audio" / name, wav)
+        rows.append(f"{name}|mel-spk{i % 4}_{i:04d}.npy|embed-spk{i % 4}_{i:04d}.npy|"
+                    f"{n // cfg.hop_size}|1|{text}")
+    (root / "train.txt").write_text("\n".join(rows) + "\n", encoding="utf-8")
+
+
+def phase_vits_train(dev, tmp: Path):
+    cfg = Config(vits_config()).merge(Config.from_json(VITS_JSON)).merge(VITS_CFG)
+    check(cfg.segment_size // cfg.hop_size < TRAIN_FRAMES[0], "segments longer than the audio")
+    _write_dataset(tmp / "data", cfg)
+    captured = []
+
+    def recording(neg_cent, mask):
+        if not captured:
+            captured.append((neg_cent.detach().clone(), mask.detach().clone()))
+        return maximum_path(neg_cent, mask)
+
+    with Phase(f"VITS train: {TRAIN_STEPS} steps, batch {TRAIN_BATCH}, bf16"):
+        vits_model_module.maximum_path = recording
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, disc = vits_train("smoke", tmp / "data", tmp / "models", cfg=cfg,
+                                 batch_size=TRAIN_BATCH, total_steps=TRAIN_STEPS,
+                                 save_every=0, log_every=1, eval_every=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        vits_model_module.maximum_path = maximum_path
+        print(f"  launches on the training path: {launches}")
+        check(launches["maximum_path"] == TRAIN_STEPS,
+              f"K2 launched {launches['maximum_path']} times in {TRAIN_STEPS} steps")
+        logs = [json.loads(line) for line in
+                (tmp / "models/smoke/logs_vits/scalars.jsonl").read_text().splitlines()]
+        check(len(logs) == TRAIN_STEPS, f"{len(logs)} logged steps")
+        for rec in logs:
+            print("  " + ", ".join(f"{k} {v:.4g}" for k, v in rec.items()))
+            check(all(np.isfinite(v) for v in rec.values()), f"a loss is not finite: {rec}")
+        nc, mask = captured[0]
+        want = (min(b for b in BUCKET_BOUNDARIES if b >= TRAIN_FRAMES[1]),
+                max(32, -(-TRAIN_SYMBOLS[1] // 16) * 16))
+        check(tuple(nc.shape[1:]) == want, f"MAS ran at {tuple(nc.shape)}, not (B, *{want})")
+        print(f"  neg_cent {tuple(nc.shape)} {nc.dtype}; {wall:.2f} s wall for "
+              f"{TRAIN_STEPS} steps (first step includes the spectrogram cache)")
+        step, state = CheckpointManager(tmp / "models/smoke/ckpt_vits").restore_latest(
+            map_location=dev)
+        check(step == TRAIN_STEPS + 1, f"checkpoint step {step}")
+        for name, t in model.state_dict().items():
+            check(torch.equal(state["g"][name], t), f"restored {name} differs")
+        for name, t in disc.state_dict().items():
+            check(torch.equal(state["d"][name], t), f"restored {name} differs")
+        print(f"  checkpoint of step {step} restored: {len(state['g'])} generator and "
+              f"{len(state['d'])} discriminator tensors equal")
+
+    with Phase("VITS train: the trainer's step, by part (synchronised at each hook)"):
+        ms_step = [rec["train/ms_per_step"] for rec in logs]
+        print(f"  train's own ms per step, steps 1..{TRAIN_STEPS}: {ms_step} (step 1 includes "
+              f"the spectrogram cache and the first calls)")
+        ds = VitsDataset(tmp / "data", cfg)
+        batch = to_device(BucketBatcher(ds, TRAIN_BATCH).collate(
+            [ds[i] for i in range(TRAIN_BATCH)], 0), dev)
+        opt_g, opt_d = make_optimizer(model.parameters()), make_optimizer(disc.parameters())
+        step = make_vits_step(model, disc, opt_g, opt_d, cfg, "bf16")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step(batch, gen)                                                 # warm
+        marks = []
+
+        def mark(event):
+            def hook(*_):
+                torch.cuda.synchronize()
+                marks.append((event, time.perf_counter()))
+            return hook
+
+        handles = [model.register_forward_pre_hook(mark("generator forward begins")),
+                   model.register_forward_hook(mark("generator forward ends")),
+                   disc.register_forward_pre_hook(mark("discriminator forward begins")),
+                   disc.register_forward_hook(mark("discriminator forward ends"))]
+        for name, opt in (("discriminator", opt_d), ("generator", opt_g)):
+            handles += [opt.register_step_pre_hook(mark(f"{name} optimizer begins")),
+                        opt.register_step_post_hook(mark(f"{name} optimizer ends"))]
+        mark("step begins")()
+        step(batch, gen)
+        mark("step ends")()
+        for h in handles:
+            h.remove()
+        for (a, t_a), (b, t_b) in zip(marks, marks[1:]):
+            print(f"  {a} -> {b}: {t_b - t_a:.4f} s")
+        print(f"  step total {marks[-1][1] - marks[0][1]:.4f} s (hooks synchronise); peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return captured[0], launches
+
+
+# ---------------------------------------------------------------------------
+# the kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def mas_cases(dev, b=16, t_y=1000, t_x=160):
+    """Ragged and tied (neg_cent, mask) cases at the training shape."""
+    rng = np.random.RandomState(0)
+
+    def case(nc, t_ys, t_xs):
+        ty, tx = nc.shape[1:]
+        mask = ((np.arange(ty)[None, :, None] < np.asarray(t_ys)[:, None, None])
+                & (np.arange(tx)[None, None, :] < np.asarray(t_xs)[:, None, None]))
+        return (torch.from_numpy(nc.astype(np.float32)).to(dev),
+                torch.from_numpy(mask.astype(np.float32)).to(dev))
+
+    t_xs = rng.randint(1, t_x + 1, b)
+    yield "ragged", case(rng.randn(b, t_y, t_x), np.maximum(rng.randint(1, t_y + 1, b), t_xs),
+                         t_xs)
+    yield "ties", case(np.round(rng.randn(b, t_y, t_x)), np.full(b, t_y), np.full(b, t_x))
+    yield "T_x = 1", case(rng.randn(b, t_y, 1), rng.randint(1, t_y + 1, b), np.ones(b, int))
+    sq = rng.randint(1, t_x + 1, b)
+    yield "T_y = T_x", case(rng.randn(b, t_x, t_x), sq, sq)
+    yield "T_y >> T_x", case(rng.randn(b, t_y, 12), rng.randint(t_y - t_y // 10, t_y + 1, b),
+                             rng.randint(1, 13, b))
+
+
+def phase_k2(dev, train_inputs, launches):
+    with Phase("K2 maximum_path: kernel against its plain version"):
+        nc_train, mask_train = train_inputs
+        cases = [("training step", (nc_train, mask_train))] + list(mas_cases(dev))
+        max_err = 0.0
+        for name, (nc, mask) in cases:
+            nc32 = (nc.float() * mask).contiguous()
+            t_ys = mask[:, :, 0].float().sum(1).int()
+            t_xs = mask[:, 0, :].float().sum(1).int()
+            k = maximum_path_cuda(nc32, t_ys, t_xs)
+            p = maximum_path_plain(nc32, t_ys, t_xs)
+            torch.cuda.synchronize()
+            n_diff = int((k != p).sum())
+            max_err = max(max_err, float((k - p).abs().max()))
+            print(f"  {name}: {tuple(nc.shape)}, {n_diff} of {k.numel()} elements differ")
+            check(n_diff == 0, f"K2 differs from its plain version on {name}")
+            check(torch.equal(k.sum((1, 2)).int(), t_ys), f"K2 path rows on {name}")
+        nc32 = (nc_train.float() * mask_train).contiguous()
+        t_ys = mask_train[:, :, 0].float().sum(1).int()
+        t_xs = mask_train[:, 0, :].float().sum(1).int()
+        ms = cuda_ms(lambda: maximum_path_cuda(nc32, t_ys, t_xs), reps=20)
+        plain_ms = cuda_ms(lambda: maximum_path_plain(nc32, t_ys, t_xs))
+        b, t_y, t_x = nc32.shape
+        cells = int((t_ys.long() * t_xs.long()).sum())
+        n_bytes = cells * 4 + 2 * b * 4 + b * t_y * t_x * 4
+        flops = 3.0 * cells
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        print(f"  training shape {tuple(nc32.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bound_ms:.5f} ms ({n_bytes} B: the {cells} cells inside the "
+              f"lengths read, the path written; {flops:.3g} FLOP); the rows are a chain of "
+              f"{int(t_ys.max())} dependent block-wide steps, {ms / int(t_ys.max()) * 1e3:.2f} "
+              f"us each; no single PyTorch call computes MAS")
+    return {"name": "maximum_path", "route": "cuda",
+            "source": "mockingbird_tpu_torch/ops/csrc/monotonic_align.cu",
+            "replaces": "mockingbird_tpu/ops/monotonic_align_pallas.py:27",
+            "launches": launches["maximum_path"], "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+
+
+def phase_k1(dev, pipe, captured, launches):
+    with Phase("K1 wavernn_sample and K1b (fold-major): kernel against its plain version"):
+        check(len(captured) == 1, f"expected one sampler call, got {len(captured)}")
+        mels, aux, seed, n_classes, _ = captured[0]
+        f, t, _ = mels.shape
+        print(f"  shapes from the TTS path: F={f} folds x T={t} steps, "
+              f"mels {tuple(mels.shape)}, aux {tuple(aux.shape)}")
+        w_bf16 = pipe.vocoder.packed
+        w_f32 = pack_wavernn_weights(pipe.vocoder.model, torch.float32)
+        # the plain version draws the kernel's own Philox noise, so sampled
+        # labels are held step by step as greedy ones are; the last mode is
+        # the TTS path's own (bf16 weights, sampled, the path's seed). K1b
+        # reads the (F, T, D) f32 conditioning in place and is held against
+        # the same plain run.
+        err = {True: 0.0, False: 0.0}
+        for label, w, greedy, bound in (("greedy f32", w_f32, True, GAP_F32),
+                                        ("greedy bf16", w_bf16, True, GAP_BF16),
+                                        ("sampled f32", w_f32, False, GAP_F32),
+                                        ("sampled bf16", w_bf16, False, GAP_BF16)):
+            p, gaps = wavernn_sample_plain(w, mels, aux, seed, n_classes, greedy=greedy,
+                                           return_gaps=True)
+            for time_major in (True, False):
+                k = wavernn_sample(w, mels, aux, seed, n_classes, greedy=greedy,
+                                   time_major=time_major)
+                compared, full, worst, e = hold_labels(k, p, gaps, bound, n_classes)
+                err[time_major] = max(err[time_major], e)
+                print(f"  {'K1 ' if time_major else 'K1b'} {label}: {compared}/{f * t} steps "
+                      f"equal before the first difference, {full}/{f} folds equal throughout, "
+                      f"largest gap at a first difference {worst:.3g} (bound {bound})")
+        print(f"  max |x_kernel - x_plain| before each fold's first near-tie: K1 {err[True]}, "
+              f"K1b {err[False]}")
+        check(err[True] == 0.0 and err[False] == 0.0,
+              "labels differ before a fold's first near-tie")
+        ks2 = wavernn_sample(w_bf16, mels, aux, seed + 1, n_classes)
+        print(f"  sampled bf16 label histograms (64 bins), total variation: kernel/plain "
+              f"{tv_distance(k, p, n_classes):.4f}, kernel seed/seed+1 "
+              f"{tv_distance(k, ks2, n_classes):.4f}")
+        check(torch.equal(wavernn_sample(w_bf16, mels, aux, seed, n_classes),
+                          wavernn_sample(w_bf16, mels, aux, seed, n_classes)),
+              "sampled kernel is not deterministic for a fixed seed")
+
+        # timings at the TTS path's shape and configuration (bf16, sampled)
+        ms = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes), reps=3)
+        ms_b = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes,
+                                              time_major=False), reps=3)
+        plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))
+        # yardstick: one cuDNN GRU call over the same T x F with the sampler's
+        # hidden width, teacher-forced (no sampling, no feedback)
+        rnn = w_bf16["g1_wh"].shape[0]
+        gru = torch.nn.GRU(rnn, rnn, device=dev, dtype=torch.bfloat16)
+        xs = torch.randn(t, f, rnn, device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: gru(xs), reps=3)
+        mm_params = sum(w_bf16[k].numel() for k in w_bf16 if k.endswith(("_w", "_wi", "_wh")))
+        flops = 2.0 * mm_params * f * t
+        w_bytes = sum(v.numel() * v.element_size() for v in w_bf16.values())
+        cond = f * t * (mels.shape[2] + aux.shape[2])
+        bounds = {}
+        for key, cond_bytes in (("K1", 2), ("K1b", 4)):
+            n_bytes = w_bytes + cond * cond_bytes + f * t * 4
+            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+            bounds[key] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+            print(f"  {key} bound {bounds[key][0]:.4f} ms ({flops:.4g} FLOP, {n_bytes:.4g} B)")
+        # blocks of 4 folds run side by side: one utterance's folds (a third
+        # of the blocks) should take about as long per step as all of them
+        f1 = f // len(TEXTS)
+        ms_one = cuda_ms(lambda: wavernn_sample(w_bf16, mels[:f1], aux[:f1], seed, n_classes),
+                         reps=3)
+        print(f"  kernel with F={f1} (one utterance): {ms_one:.3f} ms")
+        print(f"  K1 {ms:.3f} ms, K1b {ms_b:.3f} ms, plain {plain_ms:.3f} ms, cuDNN GRU "
+              f"yardstick {library_ms:.3f} ms; per step {ms / t * 1e3:.2f} us")
+    common = {"route": "cuda", "source": "mockingbird_tpu_torch/ops/csrc/wavernn_sample.cu",
+              "plain_ms": plain_ms, "library_ms": library_ms}
+    return [dict(common, name="wavernn_sample", replaces="mockingbird_tpu/ops/wavernn_sample.py:138",
+                 launches=launches["wavernn_sample"], max_abs_err=err[True], ms=ms,
+                 bound_ms=bounds["K1"][0], bound_by=bounds["K1"][1]),
+            # no path takes the fold-major layout (in the JAX package neither):
+            # its count from the TTS run is expected to be 0
+            dict(common, name="wavernn_sample(time_major=False)",
+                 replaces="mockingbird_tpu/ops/wavernn_sample.py:62",
+                 launches=launches["wavernn_sample(time_major=False)"],
+                 max_abs_err=err[False], ms=ms_b, bound_ms=bounds["K1b"][0],
+                 bound_by=bounds["K1b"][1])]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -146,157 +610,19 @@ def main() -> int:
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     with Phase("build"):
-        report = build.build("wavernn_sample")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+        with ThreadPoolExecutor(len(KERNELS)) as pool:
+            reports = list(pool.map(build.build, KERNELS))
+        for name, report in zip(KERNELS, reports):
+            for line in report.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}:", line.strip())
 
-    with Phase("main path: VoiceCloningPipeline.tts_batch, full width"):
-        pipe = VoiceCloningPipeline(vocoder=WaveRnnVocoder(verbose=False, seed=0, device=dev),
-                                    verbose=False, seed=0, device=dev)
-        pipe.synthesizer.load()
-        for key, want in Config.from_json(TACOTRON_JSON).items():
-            got = pipe.synthesizer.cfg[key]
-            check(list(got) == list(want) if isinstance(want, list) else got == want,
-                  f"Tacotron {key}={got}, committed config says {want}")
-        for key, want in Config.from_json(WAVERNN_JSON).items():
-            got = pipe.vocoder.cfg[key]
-            check(list(got) == list(want) if isinstance(want, list) else got == want,
-                  f"WaveRNN {key}={got}, committed config says {want}")
-        # record the sampler's inputs for phase 4; the count stays the wrapper's
-        captured = []
-
-        def recording(weights, mels, aux, seed, n_classes=512, greedy=False):
-            captured.append((mels, aux, seed, n_classes, greedy))
-            return wavernn_sample(weights, mels, aux, seed, n_classes, greedy)
-
-        wavernn_module.wavernn_sample = recording
-        wavernn_sample.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        wavs = pipe.tts_batch(TEXTS, REF_WAV, steps=STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"wavernn_sample": wavernn_sample.launches}
-        wavernn_module.wavernn_sample = wavernn_sample
-        print(f"  launches on the main path: {launches}")
-        for name, n in launches.items():
-            check(n > 0, f"kernel {name} was not launched on the main path")
-        hop = pipe.vocoder.cfg.hop_size
-        for text, w in zip(TEXTS, wavs):
-            check(w.dtype == np.int16, f"waveform dtype {w.dtype}")
-            check(0 < len(w) <= (STEPS - 1) * hop and len(w) % hop == 0,
-                  f"waveform length {len(w)} for {text!r}")
-            check(int(np.abs(w.astype(np.int32)).max()) > 0, "silent waveform")
-        audio_s = sum(len(w) for w in wavs) / pipe.audio_cfg.sample_rate
-        print(f"  {len(wavs)} int16 waveforms, samples {[len(w) for w in wavs]}, "
-              f"{audio_s:.2f} s of audio in {wall:.2f} s wall")
-        embed = pipe.embed_reference(REF_WAV)
-        check(embed.shape == (256,) and abs(np.linalg.norm(embed) - 1) < 1e-4,
-              "GE2E embedding is not a unit 256-vector")
-
-    with Phase("stage breakdown: a second, warm pass of the main path's stages"):
-        stages = {}
-
-        def timed(name, fn):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            stages[name] = time.perf_counter() - t0
-            return out
-
-        pipe._embed_cache.clear()
-        embed = timed("embed_reference", lambda: pipe.embed_reference(REF_WAV))
-        specs = timed("synthesize_spectrograms", lambda: pipe.synthesizer.synthesize_spectrograms(
-            TEXTS, np.tile(embed, (len(TEXTS), 1)), steps=STEPS))
-        timed("infer_waveform_batch", lambda: pipe.vocoder.infer_waveform_batch(specs))
-        for name, sec in stages.items():
-            print(f"  {name}: {sec:.3f} s")
-        print(f"  mel frames {[s.shape[1] for s in specs]}; "
-              f"{stages['synthesize_spectrograms'] / (STEPS // 2) * 1e3:.2f} ms per decode "
-              f"step if all {STEPS // 2} ran")
-
-    with Phase("GE2E on the card against the CPU"):
-        from mockingbird_tpu_torch.models.encoder import SpeakerEncoderInference
-        cpu_enc = SpeakerEncoderInference(seed=0, device="cpu")
-        cpu_enc.model.load_state_dict({k: v.cpu() for k, v in
-                                       pipe.encoder.model.state_dict().items()})
-        ref = cpu_enc.embed_utterance(cpu_enc.preprocess_wav(REF_WAV))
-        err = float(np.abs(embed - ref).max())
-        print(f"  max |card - cpu| = {err:.3g} (tolerance 1e-4)")
-        check(err < 1e-4, f"GE2E embedding on the card differs from the CPU by {err}")
-
-    with Phase("K1 wavernn_sample: kernel against its plain version"):
-        check(len(captured) == 1, f"expected one sampler call, got {len(captured)}")
-        mels, aux, seed, n_classes, _ = captured[0]
-        f, t, _ = mels.shape
-        print(f"  shapes from the main path: F={f} folds x T={t} steps, "
-              f"mels {tuple(mels.shape)}, aux {tuple(aux.shape)}")
-        model = pipe.vocoder.model
-        w_bf16 = pipe.vocoder.packed
-        w_f32 = pack_wavernn_weights(model, torch.float32)
-        # the plain version draws the kernel's own Philox noise, so sampled
-        # labels are held step by step as greedy ones are; the last mode is
-        # the main path's own (bf16 weights, sampled, the main path's seed)
-        max_abs_err = 0.0
-        for label, w, greedy, bound in (("greedy f32", w_f32, True, GAP_F32),
-                                        ("greedy bf16", w_bf16, True, GAP_BF16),
-                                        ("sampled f32", w_f32, False, GAP_F32),
-                                        ("sampled bf16", w_bf16, False, GAP_BF16)):
-            k = wavernn_sample(w, mels, aux, seed, n_classes, greedy=greedy)
-            p, gaps = wavernn_sample_plain(w, mels, aux, seed, n_classes, greedy=greedy,
-                                           return_gaps=True)
-            compared, full, worst, err = hold_labels(k, p, gaps, bound, n_classes)
-            max_abs_err = max(max_abs_err, err)
-            print(f"  {label}: {compared}/{f * t} steps equal before the first "
-                  f"difference, {full}/{f} folds equal throughout, largest gap at a "
-                  f"first difference {worst:.3g} (bound {bound})")
-        print(f"  max |x_kernel - x_plain| before each fold's first near-tie: "
-              f"{max_abs_err}")
-        check(max_abs_err == 0.0, "labels differ before a fold's first near-tie")
-        ks2 = wavernn_sample(w_bf16, mels, aux, seed + 1, n_classes)
-        print(f"  sampled bf16 label histograms (64 bins), total variation: kernel/plain "
-              f"{tv_distance(k, p, n_classes):.4f}, kernel seed/seed+1 "
-              f"{tv_distance(k, ks2, n_classes):.4f}")
-        check(torch.equal(k, wavernn_sample(w_bf16, mels, aux, seed, n_classes)),
-              "sampled kernel is not deterministic for a fixed seed")
-
-        # timings at the main path's shape and configuration (bf16, sampled)
-        ms = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes), reps=3)
-        plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))
-        # yardstick: one cuDNN GRU call over the same T x F with the sampler's
-        # hidden width, teacher-forced (no sampling, no feedback)
-        rnn = w_bf16["g1_wh"].shape[0]
-        gru = torch.nn.GRU(rnn, rnn, device=dev, dtype=torch.bfloat16)
-        xs = torch.randn(t, f, rnn, device=dev, dtype=torch.bfloat16)
-        with torch.no_grad():
-            library_ms = cuda_ms(lambda: gru(xs), reps=3)
-        mm_params = sum(w_bf16[k].numel() for k in w_bf16 if k.endswith(("_w", "_wi", "_wh")))
-        flops = 2.0 * mm_params * f * t
-        n_bytes = (sum(v.numel() * v.element_size() for v in w_bf16.values())
-                   + f * t * (mels.shape[2] + aux.shape[2]) * 2 + f * t * 4)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        # blocks of 4 folds run side by side: one utterance's folds (a third
-        # of the blocks) should take about as long per step as all of them
-        f1 = f // len(TEXTS)
-        ms_one = cuda_ms(lambda: wavernn_sample(w_bf16, mels[:f1], aux[:f1], seed, n_classes),
-                         reps=3)
-        print(f"  kernel with F={f1} (one utterance): {ms_one:.3f} ms")
-        print(f"  kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN GRU yardstick "
-              f"{library_ms:.3f} ms; bound {bound_ms:.4f} ms ({flops:.4g} FLOP, "
-              f"{n_bytes:.4g} B); per step {ms / t * 1e3:.2f} us")
-
-    kernels = [{
-        "name": "wavernn_sample", "route": "cuda",
-        "source": "mockingbird_tpu_torch/ops/csrc/wavernn_sample.cu",
-        "replaces": "mockingbird_tpu/ops/wavernn_sample.py:138",
-        "launches": launches["wavernn_sample"], "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-    }]
+    pipe, captured, tts_launches = phase_tts(dev)
+    phase_vits_serve(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_inputs, train_launches = phase_vits_train(dev, Path(tmp))
+    kernels = phase_k1(dev, pipe, captured, tts_launches)
+    kernels.append(phase_k2(dev, train_inputs, train_launches))
     print(f"== total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,7 @@ of the JAX package's framework-free modules) and device torch (``stft``)."""
 from .mel import mel_filterbank, hz_to_mel, mel_to_hz  # noqa: F401
 from .stft import (  # noqa: F401
     stft, stft_magnitude, frame, melspectrogram, mel_encoder,
-    preemphasis, amp_to_db, normalize_db,
+    preemphasis, amp_to_db, normalize_db, spectrogram_vits, spec_to_mel_vits, mel_vits,
 )
 from .audio import (  # noqa: F401
     load_wav, save_wav, resample, normalize_volume, rescale_peak,

@@ -8,6 +8,9 @@ two agree to float32 rounding. Spectrograms are **time-major**
 
   * ``melspectrogram`` — SV2TTS dialect: preemphasis + dB-norm to ±4
   * ``mel_encoder``    — GE2E dialect: power-2 mel, no log
+  * ``spectrogram_vits`` / ``mel_vits`` — torch-STFT dialect of VITS:
+    reflect pad (n_fft-hop)/2, log-clamp compression; differentiable, as the
+    generator's mel loss runs through it
 """
 from __future__ import annotations
 
@@ -65,9 +68,9 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, win_length: Optional[int] = None
     return frames @ _const(cos_b, frames), frames @ _const(nsin_b, frames)
 
 
-def stft_magnitude(x, n_fft, hop, win_length=None, center=True, pad_mode="reflect"):
+def stft_magnitude(x, n_fft, hop, win_length=None, center=True, pad_mode="reflect", eps=0.0):
     re, im = stft(x, n_fft, hop, win_length, center, pad_mode)
-    return torch.sqrt(re * re + im * im)
+    return torch.sqrt(re * re + im * im + eps)
 
 
 def preemphasis(x: torch.Tensor, k: float) -> torch.Tensor:
@@ -110,3 +113,24 @@ def mel_encoder(wav: torch.Tensor, cfg) -> torch.Tensor:
     mag = stft_magnitude(wav, n_fft, hop, n_fft, center=True, pad_mode="reflect")
     melb = _const(_mel_basis(sr, n_fft, cfg.mel_n_channels, 0.0, sr / 2.0), mag)
     return (mag * mag) @ melb
+
+
+def spectrogram_vits(wav: torch.Tensor, n_fft: int, hop: int, win_length: int) -> torch.Tensor:
+    """Linear magnitude spectrogram, torch dialect: reflect-pad (n_fft-hop)/2
+    per side, center=False, +1e-6 under the sqrt. (..., T) → (..., frames, bins)."""
+    pad = (n_fft - hop) // 2
+    lead = wav.shape[:-1]
+    x = F.pad(wav.reshape(-1, 1, wav.shape[-1]), (pad, pad), mode="reflect")
+    return stft_magnitude(x.reshape(*lead, -1), n_fft, hop, win_length, center=False, eps=1e-6)
+
+
+def spec_to_mel_vits(spec: torch.Tensor, sr, n_fft, num_mels, fmin, fmax) -> torch.Tensor:
+    """Mel projection + log-clamp compression at 1e-5."""
+    melb = _const(_mel_basis(sr, n_fft, num_mels, fmin, fmax), spec)
+    return torch.log(torch.clamp(spec @ melb, min=1e-5))
+
+
+def mel_vits(wav: torch.Tensor, cfg) -> torch.Tensor:
+    """wav → log-mel, torch dialect."""
+    spec = spectrogram_vits(wav, cfg.n_fft, cfg.hop_size, cfg.win_size)
+    return spec_to_mel_vits(spec, cfg.sample_rate, cfg.n_fft, cfg.num_mels, cfg.fmin, cfg.fmax)

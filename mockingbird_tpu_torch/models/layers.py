@@ -7,6 +7,11 @@ flax LSTM on the four hidden gates only. The formulas are otherwise PyTorch's
 gates i, f, g, o). The sequence layers here therefore use PyTorch's fused
 ``nn.GRU`` / ``nn.LSTM`` with the biases flax lacks held at zero, and
 ``weights.py`` fills the rest from a flax tree.
+
+Below them, the flax layers the VITS and HiFi-GAN modules are built from:
+``Dense``, ``LayerNorm``, convolutions with flax's padding, and flax's
+``WeightNorm`` kept as a parametrization (direction and gain), because
+training runs through it.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 
 class FusedGRUCell(nn.Module):
@@ -86,17 +92,158 @@ class LSTMCell(nn.Module):
         return c, h
 
 
+def dropout(x: torch.Tensor, p: float, generator=None) -> torch.Tensor:
+    """Dropout drawn from an explicit ``torch.Generator`` (the port's stand-in
+    for a ``jax.random`` key); flax semantics: keep with 1-p and scale by
+    1/(1-p). Active whenever a generator is passed."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class Dropout(nn.Module):
-    """Dropout drawn from an explicit ``torch.Generator`` (the port's
-    stand-in for a ``jax.random`` key); flax semantics: keep with 1-p and
-    scale by 1/(1-p). Active whenever a generator is passed."""
+    """``dropout`` as a module."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        if generator is None or self.p == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        return dropout(x, self.p, generator)
+
+
+# ---------------------------------------------------------------------------
+# flax layers. Each computes in the promoted dtype of its input and its
+# parameters, as flax's ``promote_dtype`` does: under a bf16 policy a layer
+# whose input an f32 mask or noise has touched runs in f32.
+# ---------------------------------------------------------------------------
+
+def promote(x: torch.Tensor, *params):
+    """``x`` and the parameters (``None`` passes through) in their common dtype."""
+    dt = x.dtype
+    for p in params:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return (x.to(dt),) + tuple(p if p is None else p.to(dt) for p in params)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*promote(x, self.weight, self.bias))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(epsilon=1e-5)`` over the last axis."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(x, self.weight, self.bias)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
+def weight_norm(v: torch.Tensor, scale: torch.Tensor, out_dim: int) -> torch.Tensor:
+    """flax ``nn.WeightNorm`` of a kernel: ``v · rsqrt(Σv² + 1e-12) · scale``
+    in flax's order, the sum over every axis but the output-feature axis
+    ``out_dim``."""
+    dims = [d for d in range(v.ndim) if d != out_dim]
+    shape = [1] * v.ndim
+    shape[out_dim] = -1
+    return v * torch.rsqrt((v * v).sum(dim=dims, keepdim=True) + 1e-12) * scale.reshape(shape)
+
+
+def same_padding(t: int, k: int, stride: int = 1, dilation: int = 1) -> Tuple[int, int]:
+    """flax ``padding="SAME"``: (low, high) pads for length ``t``; with a
+    stride the total is ``(ceil(t/s) - 1)·s + k_eff - t``, low gets half."""
+    k_eff = (k - 1) * dilation + 1
+    total = max((-(-t // stride) - 1) * stride + k_eff - t, 0)
+    return total // 2, total - total // 2
+
+
+class Conv1d(nn.Module):
+    """flax ``nn.Conv`` over one axis with ``padding="SAME"``, optionally
+    wrapped in flax ``nn.WeightNorm``. ``weight`` is
+    in torch's (out, in/groups, k) layout; a weight-normed conv keeps it as
+    the direction and ``scale`` (out,) as the gain, initialised to 1 as flax
+    does. Takes (B, T, C) when ``time_major``, else (B, C, T)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1, dilation: int = 1,
+                 groups: int = 1, bias: bool = True, weight_norm: bool = False,
+                 time_major: bool = True, zero_init: bool = False):
+        super().__init__()
+        conv = nn.Conv1d(in_ch, out_ch, k, stride=stride, dilation=dilation, groups=groups,
+                         bias=bias)
+        self.weight, self.bias = conv.weight, conv.bias
+        if zero_init:
+            with torch.no_grad():
+                self.weight.zero_()
+                if bias:
+                    self.bias.zero_()
+        self.scale = nn.Parameter(torch.ones(out_ch)) if weight_norm else None
+        self.weight_norm = weight_norm
+        self.k, self.stride, self.dilation, self.groups = k, stride, dilation, groups
+        self.time_major = time_major
+
+    def kernel(self) -> torch.Tensor:
+        if self.weight_norm:
+            return weight_norm(self.weight, self.scale, 0)
+        return self.weight
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(x, self.kernel(), self.bias)
+        if self.time_major:
+            x = x.transpose(1, 2)
+        pad = same_padding(x.shape[-1], self.k, self.stride, self.dilation)
+        if pad != (0, 0):
+            x = F.pad(x, pad)
+        y = F.conv1d(x, w, b, self.stride, 0, self.dilation, self.groups)
+        return y.transpose(1, 2) if self.time_major else y
+
+
+class ConvTranspose1d(nn.Module):
+    """flax ``nn.ConvTranspose`` with ``padding="VALID"`` (output length
+    (T-1)·stride + k) inside ``nn.WeightNorm``, on (B, C, T). flax does not
+    flip the kernel, torch's ``conv_transpose1d`` (the adjoint of a conv)
+    does: ``weight`` (in, out, k) holds the flax kernel flipped along k."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int):
+        super().__init__()
+        conv = nn.ConvTranspose1d(in_ch, out_ch, k, stride=stride)
+        self.weight, self.bias = conv.weight, conv.bias
+        self.scale = nn.Parameter(torch.ones(out_ch))
+        self.weight_norm = True
+        self.stride = stride
+
+    def kernel(self) -> torch.Tensor:
+        return weight_norm(self.weight, self.scale, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(x, self.kernel(), self.bias)
+        return F.conv_transpose1d(x, w, b, self.stride)
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv`` over two axes with explicit ((lo, hi), (lo, hi))
+    padding inside ``nn.WeightNorm``, on (B, C, H, W)."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: Tuple[int, int], stride: Tuple[int, int],
+                 padding: Tuple[Tuple[int, int], Tuple[int, int]]):
+        super().__init__()
+        conv = nn.Conv2d(in_ch, out_ch, k, stride=stride)
+        self.weight, self.bias = conv.weight, conv.bias
+        self.scale = nn.Parameter(torch.ones(out_ch))
+        self.weight_norm = True
+        self.stride = stride
+        (h0, h1), (w0, w1) = padding
+        self.pad = (w0, w1, h0, h1)
+
+    def kernel(self) -> torch.Tensor:
+        return weight_norm(self.weight, self.scale, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = promote(x, self.kernel(), self.bias)
+        return F.conv2d(F.pad(x, self.pad), w, b, self.stride)

@@ -1,7 +1,9 @@
 // Fused WaveRNN autoregressive sampler for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_kernel_v2` of mockingbird_tpu/ops/wavernn_sample.py
-// (reached from `wavernn_sample_pallas`, time-major conditioning). Per step, for
+// Replaces the TPU kernels `_kernel_v2` (time-major conditioning) and `_kernel`
+// (fold-major conditioning) of mockingbird_tpu/ops/wavernn_sample.py, both
+// reached from `wavernn_sample_pallas`: one kernel reads either layout through
+// its row strides, the fold-major (F, T, D) f32 one in place. Per step, for
 // F independent folds: I-dense of [x_prev, mel_t, a1] -> GRU1 (+residual) -> GRU2
 // on [u, a2] (+residual) -> relu fc1 [u, a3] -> relu fc2 [u, a4] -> fc3 logits
 // -> Gumbel-max sample (argmax when greedy) -> x = 2*label/(C-1) - 1 fed back.
@@ -130,11 +132,14 @@ __device__ __forceinline__ void gru_unit(const float* x, int ld_x, int K, const 
   }
 }
 
-template <typename W>
+// Conditioning of type Cd: time-major (T, F, D) in the weight type, or
+// fold-major (F, T, D) in f32; either way rounded to W before the products.
+template <typename W, typename Cd>
 __global__ void __launch_bounds__(kThreads)
-wavernn_sample_kernel(const W* __restrict__ mels, const W* __restrict__ aux, Weights<W> w,
+wavernn_sample_kernel(const Cd* __restrict__ mels, const Cd* __restrict__ aux, Weights<W> w,
                       int32_t* __restrict__ labels, int F, int T, int M, int A, int R,
-                      int FC, int C, int greedy, uint32_t seed_lo, uint32_t seed_hi) {
+                      int FC, int C, int greedy, int time_major, uint32_t seed_lo,
+                      uint32_t seed_hi) {
   extern __shared__ float smem[];
   const int K0 = 1 + M + A;                     // I-dense input width
   const int KX = max(K0, max(R, FC) + A);       // input-row stride
@@ -154,15 +159,18 @@ wavernn_sample_kernel(const W* __restrict__ mels, const W* __restrict__ aux, Wei
   const int A4 = 4 * A;
   const float cls = (float)(C - 1);
 
-  // conditioning row of fold f at step t (nullptr for padding folds)
-  auto mel_row = [&](int t, int f) { return mels + ((size_t)t * F + f0 + f) * M; };
-  auto aux_row = [&](int t, int f) { return aux + ((size_t)t * F + f0 + f) * A4; };
+  // conditioning row of fold f at step t, in rows: (t, f) of (T, F, .) or
+  // (f, t) of (F, T, .)
+  const size_t step_rows = time_major ? (size_t)F : 1, fold_rows = time_major ? 1 : (size_t)T;
+  auto row = [&](int t, int f) { return (size_t)t * step_rows + (size_t)(f0 + f) * fold_rows; };
+  auto mel_row = [&](int t, int f) { return mels + row(t, f) * M; };
+  auto aux_row = [&](int t, int f) { return aux + row(t, f) * A4; };
   // xin[f][0 .. K0) = [x (set later), mel_t, a1_t]
   auto load_cond = [&](float* xin, int t) {
     for (int i = tid; i < kFolds * (K0 - 1); i += kThreads) {
       const int f = i / (K0 - 1), k = i % (K0 - 1);
       float v = 0.f;
-      if (f < nf) v = k < M ? ld(mel_row(t, f) + k) : ld(aux_row(t, f) + (k - M));
+      if (f < nf) v = rnd<W>(k < M ? ld(mel_row(t, f) + k) : ld(aux_row(t, f) + (k - M)));
       xin[f * KX + 1 + k] = v;
     }
   };
@@ -170,7 +178,7 @@ wavernn_sample_kernel(const W* __restrict__ mels, const W* __restrict__ aux, Wei
   auto load_aux = [&](float* xin, int off, int t, int part) {
     for (int i = tid; i < kFolds * A; i += kThreads) {
       const int f = i / A, a = i % A;
-      xin[f * KX + off + a] = f < nf ? ld(aux_row(t, f) + part * A + a) : 0.f;
+      xin[f * KX + off + a] = f < nf ? rnd<W>(ld(aux_row(t, f) + part * A + a)) : 0.f;
     }
   };
 
@@ -289,10 +297,10 @@ wavernn_sample_kernel(const W* __restrict__ mels, const W* __restrict__ aux, Wei
   }
 }
 
-template <typename W>
+template <typename W, typename Cd>
 int launch(const void* mels, const void* aux, const void* const* wp, void* labels, int F,
-           int T, int M, int A, int R, int FC, int C, int greedy, unsigned long long seed,
-           cudaStream_t stream) {
+           int T, int M, int A, int R, int FC, int C, int greedy, int time_major,
+           unsigned long long seed, cudaStream_t stream) {
   Weights<W> w;
   const W** dst = reinterpret_cast<const W**>(&w);
   for (int i = 0; i < 16; ++i) dst[i] = static_cast<const W*>(wp[i]);
@@ -300,33 +308,38 @@ int launch(const void* mels, const void* aux, const void* const* wp, void* label
   const int KX = K0 > ((R > FC ? R : FC) + A) ? K0 : ((R > FC ? R : FC) + A);
   const size_t smem = sizeof(float) * ((size_t)kFolds * (2 * KX + 5 * R + C) + kFolds);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kernel = wavernn_sample_kernel<W>;
+  auto kernel = wavernn_sample_kernel<W, Cd>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (F + kFolds - 1) / kFolds;
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const W*>(mels), static_cast<const W*>(aux), w,
-      static_cast<int32_t*>(labels), F, T, M, A, R, FC, C, greedy,
+      static_cast<const Cd*>(mels), static_cast<const Cd*>(aux), w,
+      static_cast<int32_t*>(labels), F, T, M, A, R, FC, C, greedy, time_major,
       (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mels (T, F, M), aux (T, F, 4A) and the 16 packed weights in one dtype
-// (f32 when bf16 == 0, else bf16); labels (F, T) int32. Launches on `stream`
-// without synchronising; returns the CUDA error code of the launch.
+// The 16 packed weights in one dtype (f32 when bf16 == 0, else bf16); mels
+// (T, F, M) and aux (T, F, 4A) in that dtype when time_major, else mels
+// (F, T, M) and aux (F, T, 4A) in f32; labels (F, T) int32. Launches on
+// `stream` without synchronising; returns the CUDA error code of the launch.
 extern "C" int wavernn_sample_launch(const void* mels, const void* aux,
                                      const void* const* weights, void* labels, int F, int T,
                                      int M, int A, int R, int FC, int C, int bf16, int greedy,
-                                     unsigned long long seed, void* stream) {
+                                     int time_major, unsigned long long seed, void* stream) {
   if (F <= 0 || T <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(mels, aux, weights, labels, F, T, M, A, R, FC, C,
-                                      greedy, seed, s)
-              : launch<float>(mels, aux, weights, labels, F, T, M, A, R, FC, C, greedy,
-                              seed, s);
+  if (!bf16)
+    return launch<float, float>(mels, aux, weights, labels, F, T, M, A, R, FC, C, greedy,
+                                time_major, seed, s);
+  if (time_major)
+    return launch<__nv_bfloat16, __nv_bfloat16>(mels, aux, weights, labels, F, T, M, A, R,
+                                                FC, C, greedy, 1, seed, s);
+  return launch<__nv_bfloat16, float>(mels, aux, weights, labels, F, T, M, A, R, FC, C,
+                                      greedy, 0, seed, s);
 }
 
 extern "C" const char* wavernn_sample_error_string(int err) {

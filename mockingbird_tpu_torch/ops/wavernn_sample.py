@@ -2,7 +2,8 @@
 PyTorch version.
 
 Port of ``mockingbird_tpu/ops/wavernn_sample.py``. The kernel
-(``csrc/wavernn_sample.cu``) replaces the Pallas TPU kernel ``_kernel_v2``:
+(``csrc/wavernn_sample.cu``) replaces the Pallas TPU kernels ``_kernel_v2``
+(time-major conditioning) and ``_kernel`` (fold-major, ``time_major=False``):
 per step, for F independent folds, I-dense → GRU1 → GRU2 → fc1 → fc2 → fc3
 → Gumbel-max (or greedy argmax) sample fed back as the next input, the whole
 T-step loop inside one launch.
@@ -175,12 +176,18 @@ def _check(weights, mels, aux, n_classes):
 
 
 def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: torch.Tensor,
-                   seed: int, n_classes: int = 512, greedy: bool = False) -> torch.Tensor:
+                   seed: int, n_classes: int = 512, greedy: bool = False,
+                   time_major: bool = True) -> torch.Tensor:
     """mels (F, T, 80), aux (F, T, 4·aux_d) → labels (F, T) int32.
 
-    On CUDA tensors this launches the Hopper kernel (and counts the launch in
-    ``wavernn_sample.launches``); on CPU tensors it runs the plain version.
-    Conditioning is streamed in the weight dtype, as the Pallas kernel does."""
+    On CUDA tensors this launches the Hopper kernel and counts the launch by
+    layout, in ``wavernn_sample.launches`` (time-major) or
+    ``wavernn_sample.launches_fold_major``; on CPU tensors it runs the plain
+    version.
+    ``time_major`` streams the conditioning as one (T, F, D) copy in the
+    weight dtype, as ``_kernel_v2`` does; ``time_major=False`` reads the
+    (F, T, D) conditioning in place in f32, as ``_kernel`` does. Both round
+    it to the weight dtype before the products, so the labels are the same."""
     dev = mels.device
     if dev.type == "cpu":
         return wavernn_sample_plain(weights, mels, aux, seed, n_classes, greedy)
@@ -191,10 +198,14 @@ def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: to
     lib = _bind(load("wavernn_sample"))
     wdt = weights["I_w"].dtype
     f, t_len, m = mels.shape
-    # (F, T, D) → time-major (T, F, D) in the weight dtype: one copy, and the
-    # per-step rows of all folds are then adjacent
-    mels_t = mels.to(wdt).transpose(0, 1).contiguous()
-    aux_t = aux.to(wdt).transpose(0, 1).contiguous()
+    if time_major:
+        # (F, T, D) → (T, F, D) in the weight dtype: one copy, and the
+        # per-step rows of all folds are then adjacent
+        mels_t = mels.to(wdt).transpose(0, 1).contiguous()
+        aux_t = aux.to(wdt).transpose(0, 1).contiguous()
+    else:
+        mels_t = mels.float().contiguous()
+        aux_t = aux.float().contiguous()
     labels = torch.empty((f, t_len), dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_void_p * len(W_NAMES))(*(weights[k].data_ptr() for k in W_NAMES))
     with torch.cuda.device(dev):
@@ -203,22 +214,26 @@ def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: to
             mels_t.data_ptr(), aux_t.data_ptr(), ptrs, labels.data_ptr(),
             f, t_len, m, aux.shape[2] // 4, weights["I_w"].shape[1],
             weights["fc1_w"].shape[1], n_classes, int(wdt == torch.bfloat16),
-            int(greedy), int(seed) & (2**64 - 1), stream)
+            int(greedy), int(time_major), int(seed) & (2**64 - 1), stream)
     if err != 0:
         raise RuntimeError(f"wavernn_sample kernel launch failed: CUDA error {err} "
                            f"({lib.wavernn_sample_error_string(err).decode()})")
-    wavernn_sample.launches += 1
+    if time_major:
+        wavernn_sample.launches += 1
+    else:
+        wavernn_sample.launches_fold_major += 1
     return labels
 
 
 wavernn_sample.launches = 0
+wavernn_sample.launches_fold_major = 0
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.wavernn_sample_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_ulonglong, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_ulonglong, p]
         fn.restype = i
         lib.wavernn_sample_error_string.argtypes = [i]
         lib.wavernn_sample_error_string.restype = ctypes.c_char_p

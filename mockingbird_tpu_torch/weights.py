@@ -13,7 +13,13 @@ torch module tree maps every leaf; only the layouts differ:
   * LSTM gates i, f, g, o (flax ``ii..io`` + ``hi..ho``, biases on the hidden
     gates), fused into (in, 4h) / (h, 4h) blocks;
   * BatchNorm ``scale``/``bias`` from ``params``, ``mean``/``var`` from
-    ``batch_stats``.
+    ``batch_stats``; LayerNorm ``scale``/``bias``;
+  * flax ``ConvTranspose`` kernels (k, in, out) are not flipped, torch's
+    transposed conv flips: (in, out, k) reversed along k;
+  * flax ``WeightNorm(Conv(name=<n>_conv), name=<n>)`` keeps the conv's
+    ``kernel``/``bias`` under the sibling ``<n>_conv`` and the gain under
+    ``<n>/"<n>_conv/kernel/scale"``; the port's weight-normed conv is one
+    child ``<n>`` holding direction, bias and gain.
 
 The load is strict: a torch parameter with no flax leaf, a flax leaf no
 torch parameter took, or a shape that differs, raises.
@@ -27,7 +33,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .models.layers import FusedGRUCell, FusedLSTMLayer, GRULayer, LSTMCell
+from .models.layers import (Conv1d, Conv2d, ConvTranspose1d, FusedGRUCell, FusedLSTMLayer,
+                            GRULayer, LSTMCell)
 
 
 class WeightMismatch(KeyError):
@@ -88,8 +95,26 @@ def _load_lstm(w_ih, w_hh, b_hh, t: _Tree):
     _set(b_hh, _cat(t, ("hi", "hf", "hg", "ho"), "bias"), t.path + "/h*/bias")
 
 
+def _load_conv(m: nn.Module, p: _Tree, scale: Optional[np.ndarray]) -> None:
+    k = p.leaf("kernel")                            # (k.., in, out)
+    if isinstance(m, ConvTranspose1d):
+        w = np.flip(np.transpose(k, (1, 2, 0)), -1)
+    else:
+        w = np.moveaxis(k, (-1, -2), (0, 1))
+    _set(m.weight, np.ascontiguousarray(w), p.path)
+    if m.bias is not None:
+        _set(m.bias, p.leaf("bias"), p.path + "/bias")
+    if scale is not None:
+        _set(m.scale, scale, p.path + "/scale")
+
+
 def _load(m: nn.Module, p: _Tree, s: Optional[_Tree]) -> None:
-    if isinstance(m, nn.Linear):
+    if isinstance(m, (Conv1d, Conv2d, ConvTranspose1d)):
+        _load_conv(m, p, None)
+    elif isinstance(m, nn.LayerNorm):
+        _set(m.weight, p.leaf("scale"), p.path)
+        _set(m.bias, p.leaf("bias"), p.path + "/bias")
+    elif isinstance(m, nn.Linear):
         _set(m.weight, p.leaf("kernel").T, p.path)
         if m.bias is not None:
             _set(m.bias, p.leaf("bias"), p.path + "/bias")
@@ -124,6 +149,10 @@ def _load(m: nn.Module, p: _Tree, s: Optional[_Tree]) -> None:
             _set(prm, p.leaf(name), f"{p.path}/{name}")
         for name, child in m.named_children():
             if not any(True for _ in child.parameters()):
+                continue
+            if getattr(child, "weight_norm", False):
+                _load_conv(child, p.sub(f"{name}_conv"),
+                           p.sub(name).leaf(f"{name}_conv/kernel/scale"))
                 continue
             cs = s.sub(name) if s is not None and s.has(name) else None
             _load(child, p.sub(name), cs)

@@ -1,4 +1,6 @@
-"""The WaveRNN sampler kernel against its plain version on a CUDA card.
+"""The hand-written kernels against their plain versions on a CUDA card:
+the WaveRNN sampler (both conditioning layouts) and monotonic alignment
+search.
 
 These tests need the card and skip without one. On the card's machine (no
 JAX there, so without the JAX-side conftest) they run as
@@ -10,6 +12,8 @@ import pytest
 import torch
 
 from mockingbird_tpu_torch.models.vocoder import WaveRNN, wavernn_config
+from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
+                                                       maximum_path_plain)
 from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, wavernn_sample,
                                                       wavernn_sample_plain)
 
@@ -96,12 +100,87 @@ def test_kernel_bf16_and_sampled(card):
 def test_kernel_counts_launches_and_checks_inputs(card):
     model, mels, aux = _case(card, SMALL, 2, 16)
     w = pack_wavernn_weights(model, torch.float32)
-    before = wavernn_sample.launches
+    before = wavernn_sample.launches, wavernn_sample.launches_fold_major
     wavernn_sample(w, mels, aux, 0)
-    assert wavernn_sample.launches == before + 1
+    assert (wavernn_sample.launches, wavernn_sample.launches_fold_major) == (
+        before[0] + 1, before[1])
+    wavernn_sample(w, mels, aux, 0, time_major=False)
     wavernn_sample_plain(w, mels, aux, 0)
-    assert wavernn_sample.launches == before + 1
+    assert (wavernn_sample.launches, wavernn_sample.launches_fold_major) == (
+        before[0] + 1, before[1] + 1)
     with pytest.raises(TypeError):
         wavernn_sample({k: v.half() for k, v in w.items()}, mels, aux, 0)
     with pytest.raises(ValueError):
         wavernn_sample(w, mels, aux[:, :, :8], 0)
+
+
+@pytest.mark.parametrize("weights", ["f32", "bf16"])
+def test_fold_major_layout_matches_plain(card, weights):
+    """``time_major=False`` reads (F, T, D) f32 conditioning in place: greedy
+    and sampled labels held against the plain version with the gap rule, and
+    equal to the time-major launch's labels (same rounding, same math)."""
+    model, mels, aux = _case(card, {}, 6, 96, seed=2)
+    w = pack_wavernn_weights(model, torch.float32 if weights == "f32" else torch.bfloat16)
+    bound = 1e-3 if weights == "f32" else 5e-2
+    for greedy in (True, False):
+        k = wavernn_sample(w, mels, aux, 5, greedy=greedy, time_major=False)
+        p, gaps = wavernn_sample_plain(w, mels, aux, 5, greedy=greedy, return_gaps=True)
+        _hold(k, p, gaps, bound)
+        assert torch.equal(k, wavernn_sample(w, mels, aux, 5, greedy=greedy))
+
+
+def _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=0, ties=False):
+    rng = np.random.RandomState(seed)
+    nc = rng.randn(b, t_y, t_x).astype(np.float32)
+    if ties:
+        nc = np.round(nc)
+    return (torch.from_numpy(nc).to(card), torch.as_tensor(t_ys, dtype=torch.int32, device=card),
+            torch.as_tensor(t_xs, dtype=torch.int32, device=card))
+
+
+@pytest.mark.parametrize("case", ["ragged", "ties", "tx1", "square", "long"])
+def test_mas_kernel_exact(card, case):
+    """Every element of the kernel's path equals the plain version's."""
+    rng = np.random.RandomState(1)
+    b, t_y, t_x = 16, 1000, 160
+    t_xs = rng.randint(1, t_x + 1, b)
+    t_ys = np.maximum(rng.randint(1, t_y + 1, b), t_xs)
+    ties = case == "ties"
+    if case == "tx1":
+        t_x, t_xs = 1, np.ones(b, int)
+    elif case == "square":
+        t_y, t_x = 160, 160
+        t_xs = rng.randint(1, t_x + 1, b)
+        t_ys = t_xs.copy()
+    elif case == "long":
+        t_y, t_x = 1000, 12
+        t_xs = rng.randint(1, t_x + 1, b)
+        t_ys = rng.randint(900, t_y + 1, b)
+    nc, tys, txs = _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=3, ties=ties)
+    k = maximum_path_cuda(nc, tys, txs)
+    p = maximum_path_plain(nc, tys, txs)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert torch.equal(k.sum(dim=(1, 2)).long(), torch.as_tensor(t_ys, device=card).long())
+
+
+def test_mas_wrapper_and_checks(card):
+    """``maximum_path`` takes the kernel for CUDA tensors (one launch,
+    counted), agrees with the plain version through the mask, keeps the
+    caller's dtype; the launcher rejects what the kernel does not take."""
+    nc, tys, txs = _mas_case(card, 3, 50, 20, [50, 40, 20], [20, 7, 20])
+    mask = ((torch.arange(50, device=card)[None, :, None] < tys[:, None, None])
+            & (torch.arange(20, device=card)[None, None, :] < txs[:, None, None])).float()
+    before = maximum_path_cuda.launches
+    out = maximum_path(nc.bfloat16(), mask)
+    assert maximum_path_cuda.launches == before + 1 and out.dtype == torch.bfloat16
+    assert torch.equal(out.float(), maximum_path_plain(nc.bfloat16().float() * mask, tys, txs)
+                       * mask)
+    with pytest.raises(TypeError):
+        maximum_path_cuda(nc.double(), tys, txs)
+    with pytest.raises(ValueError, match="contiguous"):
+        maximum_path_cuda(nc.transpose(1, 2), tys, txs)
+    with pytest.raises(ValueError, match="T_y, T_x"):
+        maximum_path_cuda(nc[0], tys, txs)
+    with pytest.raises(ValueError, match="lengths"):
+        maximum_path_cuda(nc, tys[:2], txs)
