@@ -5,7 +5,7 @@
 Phases, each printing its elapsed seconds:
   1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
   2. the build of every CUDA kernel with ``nvcc`` (sm_90a), one ``nvcc`` per
-     source, all started together;
+     source and one more for K1 with its phase timers, all started together;
   3. the TTS path at the full width of the committed configurations, with
      weights made from a seed: ``VoiceCloningPipeline.tts_batch`` for three
      texts (English, Mandarin hanzi, tone-numbered pinyin) cloned from
@@ -22,17 +22,24 @@ Phases, each printing its elapsed seconds:
      back; then the trainer's own step (``make_vits_step``) timed by part
      through module and optimizer hooks;
   6. each kernel held against its plain PyTorch version on the card, with
-     the stated tolerance, and timed beside it: K2 (alignment search,
-     exactly equal) on the training step's own inputs and on ragged and
-     tied cases; K1 (WaveRNN sampler) and K1b (its fold-major layout) on
-     the TTS path's own inputs;
+     the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
+     (its fold-major layout) on the TTS path's own inputs, then timed at
+     one utterance's folds and at 4 folds per SM, with the launch plan, the
+     cuDNN GRU yardstick as built and after ``flatten_parameters()``, and
+     K1's step by phase; K2 (alignment search, exactly equal) on the
+     training step's own inputs and on ragged and tied cases, its device
+     time from a profiler trace;
   7. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
-Every path is driven with the kernels' launch counts set to 0 just before
-and read just after; each kernel of a path must have launched. Any failure
-raises and the script exits non-zero without the last line. It needs a
-CUDA card; without one it exits non-zero before any phase.
+Every path is timed under PyTorch's defaults, which is what a caller of the
+port gets (the port sets no global flag; cuDNN convolutions run in TF32);
+the VITS paths are timed once more with TF32 off. TF32 is off only inside
+``full_f32()``, around the holds against plain versions and the parity
+checks. Every path is driven with the kernels' launch counts set to 0 just
+before and read just after; each kernel of a path must have launched. Any
+failure raises and the script exits non-zero without the last line. It
+needs a CUDA card; without one it exits non-zero before any phase.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -59,8 +67,8 @@ from mockingbird_tpu_torch.models.vocoder import wavernn as wavernn_module
 from mockingbird_tpu_torch.ops import build
 from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
                                                        maximum_path_plain)
-from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, wavernn_sample,
-                                                      wavernn_sample_plain)
+from mockingbird_tpu_torch.ops.wavernn_sample import (PHASES, pack_wavernn_weights, phase_cycles,
+                                                      plan, wavernn_sample, wavernn_sample_plain)
 from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
 from mockingbird_tpu_torch.text import text_to_sequence
 from mockingbird_tpu_torch.train.checkpoint import CheckpointManager
@@ -93,6 +101,29 @@ PEAK_BYTES_PER_S = 3.35e12
 # plain run is under this bound
 GAP_F32 = 1e-3
 GAP_BF16 = 5e-2
+
+
+@contextmanager
+def full_f32():
+    """TF32 off in matmuls and cuDNN, restored after: the kernel-versus-plain
+    holds and the parity checks compare against full f32. Every timed path
+    runs under PyTorch's defaults, which is what a caller of the port gets
+    (the port sets no global flag)."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                        benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=torch.backends.cudnn.deterministic,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def tf32_state() -> str:
+    return (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+            f"cuDNN {torch.backends.cudnn.allow_tf32}")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -138,6 +169,23 @@ def cuda_ms(fn, reps: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Device time of the CUDA kernels whose name contains ``kernel``, per
+    call of ``fn``, from a ``torch.profiler`` trace of ``reps`` calls after
+    one warm-up; None when the trace holds no such kernel. Unlike
+    ``cuda_ms`` it leaves out the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
 
 
 class Stages:
@@ -259,8 +307,12 @@ def phase_tts(dev):
         cpu_enc.model.load_state_dict({k: v.cpu() for k, v in
                                        pipe.encoder.model.state_dict().items()})
         ref = cpu_enc.embed_utterance(cpu_enc.preprocess_wav(REF_WAV))
-        err = float(np.abs(embed - ref).max())
-        print(f"  max |card - cpu| = {err:.3g} (tolerance 1e-4)")
+        with full_f32():
+            pipe._embed_cache.clear()
+            embed32 = pipe.embed_reference(REF_WAV)
+        err = float(np.abs(embed32 - ref).max())
+        print(f"  max |card - cpu| = {err:.3g} with TF32 off (tolerance 1e-4); under the "
+              f"defaults {float(np.abs(embed - ref).max()):.3g}")
         check(err < 1e-4, f"GE2E embedding on the card differs from the CPU by {err}")
     return pipe, captured, launches
 
@@ -319,8 +371,12 @@ def phase_vits_serve(dev):
         st("synthesize (float), by module", lambda: syn.synthesize(TEXTS, max_frames=1000))
         for h in handles:
             h.remove()
+        with full_f32():
+            st("synthesize (float), TF32 off", lambda: syn.synthesize(TEXTS, max_frames=1000))
         st.show()
-        print(f"  warm RTF {audio_s / warm:.2f} ({audio_s:.2f} s of audio in {warm:.4f} s)")
+        print(f"  warm RTF {audio_s / warm:.2f} ({audio_s:.2f} s of audio in {warm:.4f} s, "
+              f"{tf32_state()}); with TF32 off "
+              f"{audio_s / st.s['synthesize (float), TF32 off']:.2f}")
 
 
 def _write_dataset(root: Path, cfg, seed: int = 0) -> None:
@@ -436,6 +492,17 @@ def phase_vits_train(dev, tmp: Path):
             print(f"  {a} -> {b}: {t_b - t_a:.4f} s")
         print(f"  step total {marks[-1][1] - marks[0][1]:.4f} s (hooks synchronise); peak "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        plain_step = {}
+        for name, ctx in (("defaults", None), ("TF32 off", full_f32)):
+            with ctx() if ctx else nullcontext():
+                step(batch, gen)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(batch, gen)
+                torch.cuda.synchronize()
+                plain_step[name] = time.perf_counter() - t0
+        print(f"  one step without hooks: {plain_step['defaults']:.4f} s under the defaults "
+              f"({tf32_state()}), {plain_step['TF32 off']:.4f} s with TF32 off")
     return captured[0], launches
 
 
@@ -470,7 +537,7 @@ def phase_k2(dev, train_inputs, launches):
         nc_train, mask_train = train_inputs
         cases = [("training step", (nc_train, mask_train))] + list(mas_cases(dev))
         max_err = 0.0
-        for name, (nc, mask) in cases:
+        for name, (nc, mask) in cases:  # exact: no matmul or conv, TF32 plays no part
             nc32 = (nc.float() * mask).contiguous()
             t_ys = mask[:, :, 0].float().sum(1).int()
             t_xs = mask[:, 0, :].float().sum(1).int()
@@ -485,7 +552,12 @@ def phase_k2(dev, train_inputs, launches):
         nc32 = (nc_train.float() * mask_train).contiguous()
         t_ys = mask_train[:, :, 0].float().sum(1).int()
         t_xs = mask_train[:, 0, :].float().sum(1).int()
-        ms = cuda_ms(lambda: maximum_path_cuda(nc32, t_ys, t_xs), reps=20)
+        call_ms = cuda_ms(lambda: maximum_path_cuda(nc32, t_ys, t_xs), reps=20)
+        kernel_ms = device_ms(lambda: maximum_path_cuda(nc32, t_ys, t_xs),
+                              "maximum_path_kernel")
+        # the kernel's own device time where the trace has it; a call also
+        # launches the path's zero fill and pays the host's launch costs
+        ms = kernel_ms if kernel_ms is not None else call_ms
         plain_ms = cuda_ms(lambda: maximum_path_plain(nc32, t_ys, t_xs))
         b, t_y, t_x = nc32.shape
         cells = int((t_ys.long() * t_xs.long()).sum())
@@ -493,11 +565,23 @@ def phase_k2(dev, train_inputs, launches):
         flops = 3.0 * cells
         t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
-        print(f"  training shape {tuple(nc32.shape)}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+        print(f"  training shape {tuple(nc32.shape)}: kernel {ms:.4f} ms on the device "
+              f"({'profiler' if kernel_ms is not None else 'not in the trace: CUDA events'}), "
+              f"{call_ms:.4f} ms per call by CUDA events, plain {plain_ms:.3f} "
               f"ms, bound {bound_ms:.5f} ms ({n_bytes} B: the {cells} cells inside the "
               f"lengths read, the path written; {flops:.3g} FLOP); the rows are a chain of "
-              f"{int(t_ys.max())} dependent block-wide steps, {ms / int(t_ys.max()) * 1e3:.2f} "
+              f"{int(t_ys.max())} dependent warp-wide steps, {ms / int(t_ys.max()) * 1e3:.3f} "
               f"us each; no single PyTorch call computes MAS")
+        # T_x = 1 at the same T_y: a trivial forward and the same T_y-step
+        # backtrack, an upper bound of the backtrack's share
+        tx1 = torch.full((b,), int(t_ys.max()), dtype=torch.int32, device=dev)
+        nc1 = torch.randn(b, t_y, 1, device=dev)
+        one = torch.ones_like(tx1)
+        ms1 = device_ms(lambda: maximum_path_cuda(nc1, tx1, one), "maximum_path_kernel")
+        if ms1 is None:
+            ms1 = cuda_ms(lambda: maximum_path_cuda(nc1, tx1, one), reps=20)
+        print(f"  T_x = 1, T_y = {t_y}: {ms1:.4f} ms, at most {100 * ms1 / ms:.0f}% of the "
+              f"training shape's time is the one-thread backtrack")
     return {"name": "maximum_path", "route": "cuda",
             "source": "mockingbird_tpu_torch/ops/csrc/monotonic_align.cu",
             "replaces": "mockingbird_tpu/ops/monotonic_align_pallas.py:27",
@@ -515,26 +599,38 @@ def phase_k1(dev, pipe, captured, launches):
               f"mels {tuple(mels.shape)}, aux {tuple(aux.shape)}")
         w_bf16 = pipe.vocoder.packed
         w_f32 = pack_wavernn_weights(pipe.vocoder.model, torch.float32)
+        rnn, fc = w_bf16["I_w"].shape[1], w_bf16["fc1_w"].shape[1]
+        aux_d = aux.shape[2] // 4
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for dtype in (torch.bfloat16, torch.float32):
+            pl = plan(rnn, fc, n_classes, aux_d, mels.shape[2], f, dtype, sms)
+            print(f"  plan ({dtype}, F={f}, {sms} SMs): grid {pl.grid} blocks of {pl.nu} units, "
+                  f"{pl.nv} fc columns, {pl.nq} classes; {pl.smem} B of shared memory per "
+                  f"block; {pl.fchunk} folds per stage; exchanged per step {pl.exchange_bytes} B "
+                  f"written, {pl.staged_bytes} B staged into all blocks (L2 serves each row "
+                  f"once per cluster, 4 blocks where the card keeps the grid resident so)")
         # the plain version draws the kernel's own Philox noise, so sampled
         # labels are held step by step as greedy ones are; the last mode is
         # the TTS path's own (bf16 weights, sampled, the path's seed). K1b
         # reads the (F, T, D) f32 conditioning in place and is held against
         # the same plain run.
         err = {True: 0.0, False: 0.0}
-        for label, w, greedy, bound in (("greedy f32", w_f32, True, GAP_F32),
-                                        ("greedy bf16", w_bf16, True, GAP_BF16),
-                                        ("sampled f32", w_f32, False, GAP_F32),
-                                        ("sampled bf16", w_bf16, False, GAP_BF16)):
-            p, gaps = wavernn_sample_plain(w, mels, aux, seed, n_classes, greedy=greedy,
-                                           return_gaps=True)
-            for time_major in (True, False):
-                k = wavernn_sample(w, mels, aux, seed, n_classes, greedy=greedy,
-                                   time_major=time_major)
-                compared, full, worst, e = hold_labels(k, p, gaps, bound, n_classes)
-                err[time_major] = max(err[time_major], e)
-                print(f"  {'K1 ' if time_major else 'K1b'} {label}: {compared}/{f * t} steps "
-                      f"equal before the first difference, {full}/{f} folds equal throughout, "
-                      f"largest gap at a first difference {worst:.3g} (bound {bound})")
+        with full_f32():
+            for label, w, greedy, bound in (("greedy f32", w_f32, True, GAP_F32),
+                                            ("greedy bf16", w_bf16, True, GAP_BF16),
+                                            ("sampled f32", w_f32, False, GAP_F32),
+                                            ("sampled bf16", w_bf16, False, GAP_BF16)):
+                p, gaps = wavernn_sample_plain(w, mels, aux, seed, n_classes, greedy=greedy,
+                                               return_gaps=True)
+                for time_major in (True, False):
+                    k = wavernn_sample(w, mels, aux, seed, n_classes, greedy=greedy,
+                                       time_major=time_major)
+                    compared, full, worst, e = hold_labels(k, p, gaps, bound, n_classes)
+                    err[time_major] = max(err[time_major], e)
+                    print(f"  {'K1 ' if time_major else 'K1b'} {label}: {compared}/{f * t} "
+                          f"steps equal before the first difference, {full}/{f} folds equal "
+                          f"throughout, largest gap at a first difference {worst:.3g} "
+                          f"(bound {bound})")
         print(f"  max |x_kernel - x_plain| before each fold's first near-tie: K1 {err[True]}, "
               f"K1b {err[False]}")
         check(err[True] == 0.0 and err[False] == 0.0,
@@ -547,17 +643,44 @@ def phase_k1(dev, pipe, captured, launches):
                           wavernn_sample(w_bf16, mels, aux, seed, n_classes)),
               "sampled kernel is not deterministic for a fixed seed")
 
-        # timings at the TTS path's shape and configuration (bf16, sampled)
-        ms = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes), reps=3)
-        ms_b = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes,
-                                              time_major=False), reps=3)
+        # timings at the TTS path's configuration (bf16, sampled): its own F,
+        # one utterance's folds, and the inputs tiled to 4 folds per SM
+        f1 = f // len(TEXTS)
+        f_big = 4 * sms
+        reps = -(-f_big // f)
+        sizes = {f: (mels, aux), f1: (mels[:f1], aux[:f1]),
+                 f_big: (mels.repeat(reps, 1, 1)[:f_big].contiguous(),
+                         aux.repeat(reps, 1, 1)[:f_big].contiguous())}
+        times = {}
+        for fx, (m_x, a_x) in sizes.items():
+            tm = cuda_ms(lambda: wavernn_sample(w_bf16, m_x, a_x, seed, n_classes), reps=3)
+            fm = cuda_ms(lambda: wavernn_sample(w_bf16, m_x, a_x, seed, n_classes,
+                                                time_major=False), reps=3)
+            times[fx] = (tm, fm)
+            pl = plan(rnn, fc, n_classes, aux_d, mels.shape[2], fx, torch.bfloat16, sms)
+            print(f"  F={fx}: K1 {tm:.3f} ms ({tm / t * 1e3:.2f} us per step), K1b {fm:.3f} ms "
+                  f"({fm / t * 1e3:.2f} us per step); {pl.fchunk} folds per stage, "
+                  f"{pl.staged_bytes / 2**20:.1f} MiB staged into all blocks per step")
+        ms, ms_b = times[f]
+        # where a step's time goes: the kernel built again with its phase
+        # timers (SM cycles per step, averaged over blocks), shares of the
+        # 13 phases, and the parts counted within them
+        names, cycles = phase_cycles(w_bf16, mels, aux, seed, n_classes)
+        step_cycles = sum(cycles[:len(PHASES)])
+        us_step = ms / t * 1e3
+        print(f"  K1 at F={f}, by phase: {step_cycles:.0f} SM cycles per step")
+        for name, c in zip(names, cycles):
+            print(f"    {name}: {c:.0f} cycles, {100 * c / step_cycles:.1f}% "
+                  f"(~{us_step * c / step_cycles:.2f} us of {us_step:.2f})")
         plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))
         # yardstick: one cuDNN GRU call over the same T x F with the sampler's
-        # hidden width, teacher-forced (no sampling, no feedback)
-        rnn = w_bf16["g1_wh"].shape[0]
+        # hidden width, teacher-forced (no sampling, no feedback), as built
+        # and after flatten_parameters()
         gru = torch.nn.GRU(rnn, rnn, device=dev, dtype=torch.bfloat16)
         xs = torch.randn(t, f, rnn, device=dev, dtype=torch.bfloat16)
         with torch.no_grad():
+            unflat_ms = cuda_ms(lambda: gru(xs), reps=3)
+            gru.flatten_parameters()
             library_ms = cuda_ms(lambda: gru(xs), reps=3)
         mm_params = sum(w_bf16[k].numel() for k in w_bf16 if k.endswith(("_w", "_wi", "_wh")))
         flops = 2.0 * mm_params * f * t
@@ -569,14 +692,9 @@ def phase_k1(dev, pipe, captured, launches):
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
             bounds[key] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
             print(f"  {key} bound {bounds[key][0]:.4f} ms ({flops:.4g} FLOP, {n_bytes:.4g} B)")
-        # blocks of 4 folds run side by side: one utterance's folds (a third
-        # of the blocks) should take about as long per step as all of them
-        f1 = f // len(TEXTS)
-        ms_one = cuda_ms(lambda: wavernn_sample(w_bf16, mels[:f1], aux[:f1], seed, n_classes),
-                         reps=3)
-        print(f"  kernel with F={f1} (one utterance): {ms_one:.3f} ms")
         print(f"  K1 {ms:.3f} ms, K1b {ms_b:.3f} ms, plain {plain_ms:.3f} ms, cuDNN GRU "
-              f"yardstick {library_ms:.3f} ms; per step {ms / t * 1e3:.2f} us")
+              f"yardstick {unflat_ms:.3f} ms as built, {library_ms:.3f} ms after "
+              f"flatten_parameters(); per step {ms / t * 1e3:.2f} us ({tf32_state()})")
     common = {"route": "cuda", "source": "mockingbird_tpu_torch/ops/csrc/wavernn_sample.cu",
               "plain_ms": plain_ms, "library_ms": library_ms}
     return [dict(common, name="wavernn_sample", replaces="mockingbird_tpu/ops/wavernn_sample.py:138",
@@ -595,9 +713,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    # the plain versions are the reference: full float32 in matmuls and cuDNN
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
@@ -608,14 +723,18 @@ def main() -> int:
         print(smi)
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        print(f"  paths timed under PyTorch's defaults ({tf32_state()}); TF32 off only "
+              f"around the holds against plain versions and the parity checks")
 
     with Phase("build"):
-        with ThreadPoolExecutor(len(KERNELS)) as pool:
-            reports = list(pool.map(build.build, KERNELS))
-        for name, report in zip(KERNELS, reports):
+        # every source, and K1 again with its phase timers, all at once
+        builds = [(name, ()) for name in KERNELS] + [("wavernn_sample", ("WAVERNN_PROFILE",))]
+        with ThreadPoolExecutor(len(builds)) as pool:
+            reports = list(pool.map(lambda b: build.build(*b), builds))
+        for (name, defines), report in zip(builds, reports):
             for line in report.splitlines():
                 if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}:", line.strip())
+                    print(f"  ptxas {name}{''.join(' -D' + d for d in defines)}:", line.strip())
 
     pipe, captured, tts_launches = phase_tts(dev)
     phase_vits_serve(dev)

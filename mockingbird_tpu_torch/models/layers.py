@@ -15,7 +15,7 @@ training runs through it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -128,11 +128,25 @@ def promote(x: torch.Tensor, *params):
     return (x.to(dt),) + tuple(p if p is None else p.to(dt) for p in params)
 
 
+def with_bias(op, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *args,
+              channel_dim: int = 1) -> torch.Tensor:
+    """``op(x, w, b, *args)`` as flax computes it: flax adds the bias after
+    the product, as an op of its own, so below f32 the product is rounded
+    to the compute dtype before the bias is added. In f32 the bias is
+    fused, which differs only in the last bit."""
+    if b is None or x.dtype == torch.float32:
+        return op(x, w, b, *args)
+    y = op(x, w, None, *args)
+    shape = [1] * y.ndim
+    shape[channel_dim] = -1
+    return y + b.reshape(shape)
+
+
 class Dense(nn.Linear):
     """flax ``nn.Dense``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(*promote(x, self.weight, self.bias))
+        return with_bias(F.linear, *promote(x, self.weight, self.bias), channel_dim=-1)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -149,11 +163,22 @@ class LayerNorm(nn.LayerNorm):
 def weight_norm(v: torch.Tensor, scale: torch.Tensor, out_dim: int) -> torch.Tensor:
     """flax ``nn.WeightNorm`` of a kernel: ``v · rsqrt(Σv² + 1e-12) · scale``
     in flax's order, the sum over every axis but the output-feature axis
-    ``out_dim``."""
+    ``out_dim``. Returned in f32, for the caller to cast to the dtype its
+    conv runs in. With bf16 parameters it rounds where jitted XLA does: the
+    sum (``jnp.sum`` accumulates in f32 and rounds its result), the rsqrt
+    and the normalised direction, but not the product with ``scale``, which
+    stays in the fusion that feeds the conv."""
     dims = [d for d in range(v.ndim) if d != out_dim]
     shape = [1] * v.ndim
     shape[out_dim] = -1
-    return v * torch.rsqrt((v * v).sum(dim=dims, keepdim=True) + 1e-12) * scale.reshape(shape)
+    wdt = v.dtype
+
+    def rnd(a):
+        return a.to(wdt).float()
+
+    v = v.float()
+    inv = rnd(torch.rsqrt(rnd((v * v).sum(dim=dims, keepdim=True)) + 1e-12))
+    return rnd(v * inv) * scale.float().reshape(shape)
 
 
 def same_padding(t: int, k: int, stride: int = 1, dilation: int = 1) -> Tuple[int, int]:
@@ -194,13 +219,14 @@ class Conv1d(nn.Module):
         return self.weight
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = promote(x, self.kernel(), self.bias)
+        x, _, b = promote(x, self.weight, self.bias)
+        w = self.kernel().to(x.dtype)
         if self.time_major:
             x = x.transpose(1, 2)
         pad = same_padding(x.shape[-1], self.k, self.stride, self.dilation)
         if pad != (0, 0):
             x = F.pad(x, pad)
-        y = F.conv1d(x, w, b, self.stride, 0, self.dilation, self.groups)
+        y = with_bias(F.conv1d, x, w, b, self.stride, 0, self.dilation, self.groups)
         return y.transpose(1, 2) if self.time_major else y
 
 
@@ -222,8 +248,9 @@ class ConvTranspose1d(nn.Module):
         return weight_norm(self.weight, self.scale, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = promote(x, self.kernel(), self.bias)
-        return F.conv_transpose1d(x, w, b, self.stride)
+        x, _, b = promote(x, self.weight, self.bias)
+        w = self.kernel().to(x.dtype)
+        return with_bias(F.conv_transpose1d, x, w, b, self.stride)
 
 
 class Conv2d(nn.Module):
@@ -245,5 +272,6 @@ class Conv2d(nn.Module):
         return weight_norm(self.weight, self.scale, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = promote(x, self.kernel(), self.bias)
-        return F.conv2d(F.pad(x, self.pad), w, b, self.stride)
+        x, _, b = promote(x, self.weight, self.bias)
+        w = self.kernel().to(x.dtype)
+        return with_bias(F.conv2d, F.pad(x, self.pad), w, b, self.stride)

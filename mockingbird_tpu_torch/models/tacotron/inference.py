@@ -30,7 +30,8 @@ class Synthesizer:
 
     Weights come from ``variables`` (the flax tree, see ``weights.py``), from
     an ``.npz`` export at ``model_fpath`` (with its ``.json`` config
-    sidecar), or else from ``seed``."""
+    sidecar), or else from ``seed``. A ``model_fpath`` that does not exist
+    raises."""
 
     sample_rate = 16000
 
@@ -41,7 +42,9 @@ class Synthesizer:
         self.device = resolve_device(device)
         self.cfg = cfg or tacotron_config()
         self.audio_cfg = audio_cfg or sv2tts_audio_config()
-        self.model_fpath = Path(model_fpath) if model_fpath else None
+        self.model_fpath = Path(model_fpath) if model_fpath is not None else None
+        if self.model_fpath is not None and not self.model_fpath.is_file():
+            raise FileNotFoundError(f"no synthesizer weights at {self.model_fpath}")
         self.verbose = verbose
         self.seed = seed
         self._variables = variables
@@ -52,7 +55,7 @@ class Synthesizer:
 
     def load(self) -> None:
         variables = self._variables
-        if self.model_fpath is not None and self.model_fpath.exists():
+        if self.model_fpath is not None:
             sidecar = self.model_fpath.with_suffix(".json")
             if sidecar.exists():
                 self.cfg.merge(Config.from_json(sidecar))

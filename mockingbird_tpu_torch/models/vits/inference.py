@@ -50,10 +50,12 @@ class VitsSynthesizer:
         model = init_vits(seed, self.cfg)
         if variables is not None:
             load_flax(model, variables)
-        # half=True casts the weights to bf16. In the JAX package it measured
-        # SLOWER on a TPU (the flow/duration stack's many small mixed-dtype
-        # ops became convert-bound), so f32 stays the default; on the card it
-        # is not measured.
+        # half=True casts the weights to bf16; the inputs stay f32, as the
+        # JAX package hands them in, and each layer computes in the promoted
+        # dtype of its input and weights (``layers.promote``), as flax does.
+        # In the JAX package it measured SLOWER on a TPU (the flow/duration
+        # stack's many small mixed-dtype ops became convert-bound), so f32
+        # stays the default; on the card it is not measured.
         self.half = half
         self.model = model.to(self.device, torch.bfloat16 if half else torch.float32).eval()
 
@@ -72,7 +74,7 @@ class VitsSynthesizer:
                           max_frames: int = 1000, pcm16: bool = False):
         """Like ``synthesize`` but returns the device tensors (o (B, max_frames
         · hop), y_lengths (B,)) without fetching them."""
-        dev, wdt = self.device, next(self.model.parameters()).dtype
+        dev = self.device
         x, xl = self._texts(texts)
         b = len(texts)
         sids = np.zeros(b, np.int64) if sids is None else np.asarray(sids, np.int64)
@@ -81,7 +83,7 @@ class VitsSynthesizer:
         gen = torch.Generator(device=dev).manual_seed(self.seed)
         o, _, _, y_lengths = self.model.infer(
             torch.from_numpy(x).to(dev), torch.from_numpy(xl).to(dev),
-            torch.from_numpy(sids).to(dev), torch.from_numpy(emos).to(dev, wdt),
+            torch.from_numpy(sids).to(dev), torch.from_numpy(emos).to(dev),
             noise_scale=noise_scale, length_scale=length_scale, noise_scale_w=noise_scale_w,
             max_len=max_frames, generator=gen)
         o = o.float()
@@ -105,13 +107,12 @@ class VitsSynthesizer:
         """Posterior-mean reconstruction of real audio (``Vits.reconstruct``):
         wav float32 at 16 kHz → reconstructed wav."""
         cfg, dev = self.cfg, self.device
-        wdt = next(self.model.parameters()).dtype
         spec = spectrogram_vits(torch.from_numpy(np.asarray(wav, np.float32)), cfg.n_fft,
                                 cfg.hop_size, cfg.win_size)          # (T, spec)
         t_len = _bucket(spec.shape[0], 64)
         y = torch.zeros(1, t_len, spec.shape[1])
         y[0, :spec.shape[0]] = spec
-        o = self.model.reconstruct(y.to(dev, wdt),
+        o = self.model.reconstruct(y.to(dev),
                                    torch.tensor([spec.shape[0]], device=dev),
                                    torch.tensor([sid], device=dev))
         return o.float().cpu().numpy()[0, :spec.shape[0] * cfg.hop_size]

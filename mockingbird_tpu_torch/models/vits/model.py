@@ -68,7 +68,12 @@ class TextEncoder(nn.Module):
 
     def forward(self, x, x_lengths, emo=None, gen=None):
         c = self.cfg
-        h = self.emb(x) * math.sqrt(c.hidden_channels)
+        h = self.emb(x)
+        # JAX gives a Python scalar the array's dtype (weak typing), so a bf16
+        # table is scaled by sqrt(hidden) rounded to bf16; jitted XLA keeps
+        # the product in f32, since f32 ops (the emotion term, the mask)
+        # consume it
+        h = h.float() * torch.tensor(math.sqrt(c.hidden_channels), dtype=h.dtype).float()
         if c.use_emotion and emo is not None:
             h = h + self.emo_proj(emo)[:, None, :]
         x_mask = sequence_mask(x_lengths, x.shape[1])[..., None]

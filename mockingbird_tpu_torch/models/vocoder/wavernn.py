@@ -194,7 +194,8 @@ class WaveRnnVocoder:
     """mel (M, T) ±4-normalised → waveform.
 
     Weights come from ``variables`` (the flax tree, see ``weights.py``), from
-    an ``.npz`` export at ``model_fpath``, or else from ``seed``. The sampler
+    an ``.npz`` export at ``model_fpath`` (which must exist), or else from
+    ``seed``. The sampler
     runs with bf16 weights, as the JAX package's kernel does."""
 
     def __init__(self, model_fpath: Optional[Union[str, Path]] = None,
@@ -209,7 +210,7 @@ class WaveRnnVocoder:
                              f"factorise hop {self.cfg.hop_size}")
         with seeded(seed):
             self.model = WaveRNN(self.cfg)
-        if model_fpath is not None and Path(model_fpath).exists():
+        if model_fpath is not None:
             variables = load_npz(model_fpath)
             if verbose:
                 print(f"Loaded WaveRNN from {model_fpath}")

@@ -1,4 +1,5 @@
-// Fused WaveRNN autoregressive sampler for Hopper (sm_90a).
+// Fused WaveRNN autoregressive sampler for Hopper (sm_90a): a persistent,
+// weight-stationary kernel.
 //
 // Replaces the TPU kernels `_kernel_v2` (time-major conditioning) and `_kernel`
 // (fold-major conditioning) of mockingbird_tpu/ops/wavernn_sample.py, both
@@ -11,21 +12,50 @@
 // What bounds it on this card: the work is about 2 x 4.07 M multiply-adds per
 // fold per step at full width, on 8.1 MB of bf16 weights, and the T steps are
 // strictly sequential. Counted once per call the function is bound by its
-// operations; step by step, a block that re-reads every weight each step is
-// bound by how fast one SM can stream 8.1 MB out of L2.
+// operations. Step by step, a design in which a block re-reads every weight
+// each step is bound by how fast one SM streams 8.1 MB out of L2 (about
+// 70 us a step at ~110 GB/s): the weights have to stay put instead.
 //
-// What the design does about it (a simple, correct first version):
-//   * the folds are independent, only time is sequential: one block takes
-//     kFolds folds and loops over all T steps itself, so no block ever waits
-//     for another and there is no grid-wide sync;
-//   * the state (h1, h2, u, x) of the block's folds lives in shared memory;
-//   * the weights (8.1 MB, too large for one SM's 227 KB) stream from global
-//     memory every step and stay resident in the 50 MB L2; each weight read is
-//     reused for all kFolds folds of the block;
-//   * thread j owns output column j of every dense layer (and unit j of both
-//     GRUs), so weight reads are coalesced rows of the (in, out) matrices and
-//     each thread finishes its GRU units without exchanging partial sums.
-// Later work: wgmma tiles, weights spread over SMs, TMA-fed conditioning.
+// What the design does about it:
+//   * one cooperative launch (cudaLaunchKernelEx, cooperative) of G <=
+//     SM-count blocks, one per SM, all resident, looping over all T steps,
+//     in clusters of 4 blocks (2, or none, if the card cannot keep the grid
+//     resident so);
+//   * each block owns a slice of output columns of every layer and loads
+//     that slice of every weight matrix into shared memory once, before the
+//     step loop (64 KB of bf16 at full width on 128 blocks; 128 KB in f32):
+//     nu whole GRU units (the r, z and n rows of g*_wi and g*_wh, and the
+//     same nu columns of I, so the residual u never leaves the block), nv
+//     columns of fc1 and of fc2, nq classes of fc3;
+//   * after a layer, each block writes its columns of the layer's output for
+//     all F folds, rounded to the weight type as the reference rounds before
+//     each product, into a global exchange buffer (double-buffered by step
+//     parity); a grid barrier follows; then every block stages the full
+//     input rows it needs into shared memory, F folds in chunks that fit:
+//     each block of a cluster fetches every 4th row once by a bulk copy
+//     (which reads L2, never the SMs' non-coherent L1) multicast into all
+//     the cluster's blocks, an mbarrier in each counting the bytes in
+//     (without a cluster, each block reads every row by cp.async.cg); the
+//     conditioning columns (mel, a1..a4) come from the conditioning input;
+//   * the hidden products g1_wh.h1[t-1] and g2_wh.h2[t-1] depend only on the
+//     previous step and run in the same phase as the I-dense;
+//   * products: bf16 weights on the tensor cores by mma.sync.m16n8k16 (bf16
+//     in, f32 sums), the block's weight rows in the 16-row A operand and 8
+//     folds in N; f32 weights, the parity mode, by f32 FMA on the same tiles;
+//   * sampling: each block adds Gumbel noise to its own classes only and
+//     folds its best (score, class) per fold into one 64-bit atomicMax key
+//     (score ordered, then the lowest class); after the barrier every block
+//     reads the winner of each fold, so x_t needs no further barrier;
+//   * the grid barrier is hand-written: __syncthreads, then thread 0 fences
+//     (__threadfence), adds one to a global counter and spins with
+//     ld.acquire.gpu until the counter reaches G times the barrier's number.
+//     Six per step: after I (with the hidden products), GRU1, GRU2, fc1,
+//     fc2 and fc3's partial argmax.
+// Expected floor per step: the 6 barriers (about 1.5 us each with 128
+// blocks) plus the staging of the exchanged rows (about 0.5 MB into each
+// block at F = 72, bf16, 63 MiB over all blocks, of which L2 serves a
+// quarter with clusters of 4), about 15 us; the products' latency comes on
+// top. PERF.md records the measured split by phase (`phase_cycles`).
 //
 // Numerics follow the Pallas kernel: activations are rounded to the weight
 // type before each product and accumulated in f32; sampling draws 32 random
@@ -42,24 +72,79 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kFolds = 4;  // folds per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kSmemLimit = 232448;
 
-template <typename W>
-struct Weights {
-  const W* I_w; const W* I_b;
-  const W* g1_wi; const W* g1_bi; const W* g1_wh; const W* g1_bn;
-  const W* g2_wi; const W* g2_bi; const W* g2_wh; const W* g2_bn;
-  const W* fc1_w; const W* fc1_b; const W* fc2_w; const W* fc2_b;
-  const W* fc3_w; const W* fc3_b;
+__host__ __device__ constexpr int ceil_to(int v, int m) { return (v + m - 1) / m * m; }
+
+// ---------------------------------------------------------------------------
+// the launch plan's shared-memory layout (mirrored by `plan` in
+// wavernn_sample.py, which the launcher checks against)
+// ---------------------------------------------------------------------------
+
+struct Dims {
+  int F, T, M, A, R, FC, C;  // folds, steps, mel, aux part, rnn, fc, classes
+  int G, nu, nv, nq, fchunk;  // blocks; units, fc columns, classes per block; folds per stage
+  int wbytes;                 // 2 (bf16) or 4 (f32)
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+// row stride (elements) of a K-wide operand in shared memory: K padded to the
+// mma depth (16), plus 16 bytes so that the 8 row groups of a fragment load
+// fall on distinct banks
+__host__ __device__ inline int kstride(int K, int wbytes) {
+  return ceil_to(K, 16) + 16 / wbytes;
+}
 
-template <typename W> __device__ __forceinline__ float rnd(float v);
-template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+struct Layout {
+  // weight slices: I (nu x K0), g1_wi (3nu x R), g1_wh (3nu x R),
+  // g2_wi (3nu x R+A), g2_wh (3nu x R), fc1 (nv x R+A), fc2 (nv x FC+A),
+  // fc3 (nq x FC); element offsets into the weight area and row strides
+  int off[8], rows[8], K[8], ks[8];
+  int xstage;     // element offset of the activation stage [fchunk][ksmax]
+  int ksmax;
+  int bias_off;   // byte offset of the f32 biases
+  int nbias;      // 9nu + 2nv + nq
+  int mbar_off;   // byte offset of the staging mbarrier (8 bytes)
+  int bytes;      // total dynamic shared memory
+};
+
+__host__ __device__ inline Layout layout(const Dims& d) {
+  Layout L;
+  const int K0 = 1 + d.M + d.A;
+  const int rows[8] = {d.nu, 3 * d.nu, 3 * d.nu, 3 * d.nu, 3 * d.nu, d.nv, d.nv, d.nq};
+  const int Ks[8] = {K0, d.R, d.R, d.R + d.A, d.R, d.R + d.A, d.FC + d.A, d.FC};
+  int at = 0;
+  L.ksmax = 0;
+  for (int i = 0; i < 8; ++i) {
+    L.rows[i] = rows[i];
+    L.K[i] = Ks[i];
+    L.ks[i] = kstride(Ks[i], d.wbytes);
+    L.off[i] = at;
+    at += rows[i] * L.ks[i];
+    L.ksmax = L.ks[i] > L.ksmax ? L.ks[i] : L.ksmax;
+  }
+  L.xstage = at;
+  at += d.fchunk * L.ksmax;
+  L.bias_off = ceil_to(at * d.wbytes, 16);
+  L.nbias = 9 * d.nu + 2 * d.nv + d.nq;
+  L.mbar_off = ceil_to(L.bias_off + 4 * L.nbias, 16);
+  L.bytes = L.mbar_off + 16;
+  return L;
+}
+
+// ---------------------------------------------------------------------------
+// device helpers
+// ---------------------------------------------------------------------------
+
+template <typename W> __device__ __forceinline__ float to_f(W v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename W> __device__ __forceinline__ W from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
 }
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
@@ -77,246 +162,660 @@ __device__ __forceinline__ uint32_t philox(uint32_t c0, uint32_t c1, uint32_t c2
   return c0;
 }
 
-// acc[f] (+)= sum_k in[f*ld_in + k] * w[k*n + col], for the block's folds.
-template <typename W>
-__device__ __forceinline__ void dot_col(float (&acc)[kFolds], const float* in, int ld_in,
-                                        int K, const W* __restrict__ w, int n, int col) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float wv = ld(w + (size_t)k * n + col);
-#pragma unroll
-    for (int f = 0; f < kFolds; ++f) acc[f] = fmaf(in[f * ld_in + k], wv, acc[f]);
-  }
+// (score, class) -> a key whose unsigned order is score order, then the
+// lowest class; -0 is taken as +0, as a float comparison takes it
+__device__ __forceinline__ unsigned long long arg_key(float s, int c) {
+  const uint32_t u = __float_as_uint(s + 0.0f);
+  const uint32_t o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)o << 32) | (0xFFFFFFFFu - (uint32_t)c);
 }
 
-// One GRU unit j for the block's folds: x (rounded, K wide) and h (rounded)
-// from shared memory; h_own is the f32 state. Writes h' into h_own.
-template <typename W>
-__device__ __forceinline__ void gru_unit(const float* x, int ld_x, int K, const float* hr,
-                                         float* h_own, int R, int j, const W* __restrict__ wi,
-                                         const W* __restrict__ bi, const W* __restrict__ wh,
-                                         const W* __restrict__ bn, float (&hnew)[kFolds]) {
-  float xr[kFolds], xz[kFolds], xn[kFolds], hr_[kFolds], hz[kFolds], hn[kFolds];
-#pragma unroll
-  for (int f = 0; f < kFolds; ++f) { xr[f] = xz[f] = xn[f] = hr_[f] = hz[f] = hn[f] = 0.f; }
-  const int n3 = 3 * R;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const W* row = wi + (size_t)k * n3;
-    const float wr = ld(row + j), wz = ld(row + R + j), wn = ld(row + 2 * R + j);
-#pragma unroll
-    for (int f = 0; f < kFolds; ++f) {
-      const float v = x[f * ld_x + k];
-      xr[f] = fmaf(v, wr, xr[f]); xz[f] = fmaf(v, wz, xz[f]); xn[f] = fmaf(v, wn, xn[f]);
-    }
-  }
-#pragma unroll 2
-  for (int k = 0; k < R; ++k) {
-    const W* row = wh + (size_t)k * n3;
-    const float wr = ld(row + j), wz = ld(row + R + j), wn = ld(row + 2 * R + j);
-#pragma unroll
-    for (int f = 0; f < kFolds; ++f) {
-      const float v = hr[f * R + k];
-      hr_[f] = fmaf(v, wr, hr_[f]); hz[f] = fmaf(v, wz, hz[f]); hn[f] = fmaf(v, wn, hn[f]);
-    }
-  }
-  const float br = ld(bi + j), bz = ld(bi + R + j), bnx = ld(bi + 2 * R + j), bhn = ld(bn + j);
-#pragma unroll
-  for (int f = 0; f < kFolds; ++f) {
-    const float r = sigm((xr[f] + br) + hr_[f]);
-    const float z = sigm((xz[f] + bz) + hz[f]);
-    const float n = tanhf((xn[f] + bnx) + r * (hn[f] + bhn));
-    const float h = h_own[f * R + j];
-    hnew[f] = (1.0f - z) * n + z * h;
-    h_own[f * R + j] = hnew[f];
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Conditioning of type Cd: time-major (T, F, D) in the weight type, or
-// fold-major (F, T, D) in f32; either way rounded to W before the products.
-template <typename W, typename Cd>
-__global__ void __launch_bounds__(kThreads)
-wavernn_sample_kernel(const Cd* __restrict__ mels, const Cd* __restrict__ aux, Weights<W> w,
-                      int32_t* __restrict__ labels, int F, int T, int M, int A, int R,
-                      int FC, int C, int greedy, int time_major, uint32_t seed_lo,
-                      uint32_t seed_hi) {
-  extern __shared__ float smem[];
-  const int K0 = 1 + M + A;                     // I-dense input width
-  const int KX = max(K0, max(R, FC) + A);       // input-row stride
-  float* xa = smem;                             // [kFolds][KX] rounded inputs
-  float* xb = xa + kFolds * KX;                 // [kFolds][KX] rounded inputs
-  float* us = xb + kFolds * KX;                 // [kFolds][R]  residual stream u
-  float* h1 = us + kFolds * R;                  // [kFolds][R]  GRU1 state (f32)
-  float* h1r = h1 + kFolds * R;                 // [kFolds][R]  GRU1 state rounded
-  float* h2 = h1r + kFolds * R;
-  float* h2r = h2 + kFolds * R;
-  float* logits = h2r + kFolds * R;             // [kFolds][C]
-  float* xs = logits + kFolds * C;              // [kFolds]     previous sample
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
 
-  const int tid = threadIdx.x;
-  const int f0 = blockIdx.x * kFolds;
-  const int nf = min(kFolds, F - f0);
-  const int A4 = 4 * A;
-  const float cls = (float)(C - 1);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of parity `parity` to complete; traps after seconds.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 33)) __trap();
+  }
+}
+// `bytes` from global `src` to `dst` in the shared memory of every CTA of
+// the cluster in `mask`, each CTA's mbarrier at `bar` counting them
+__device__ __forceinline__ void bulk_multicast(void* dst, const void* src, uint32_t bytes,
+                                               uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
 
-  // conditioning row of fold f at step t, in rows: (t, f) of (T, F, .) or
-  // (f, t) of (F, T, .)
-  const size_t step_rows = time_major ? (size_t)F : 1, fold_rows = time_major ? 1 : (size_t)T;
-  auto row = [&](int t, int f) { return (size_t)t * step_rows + (size_t)(f0 + f) * fold_rows; };
-  auto mel_row = [&](int t, int f) { return mels + row(t, f) * M; };
-  auto aux_row = [&](int t, int f) { return aux + row(t, f) * A4; };
-  // xin[f][0 .. K0) = [x (set later), mel_t, a1_t]
-  auto load_cond = [&](float* xin, int t) {
-    for (int i = tid; i < kFolds * (K0 - 1); i += kThreads) {
-      const int f = i / (K0 - 1), k = i % (K0 - 1);
-      float v = 0.f;
-      if (f < nf) v = rnd<W>(k < M ? ld(mel_row(t, f) + k) : ld(aux_row(t, f) + (k - M)));
-      xin[f * KX + 1 + k] = v;
-    }
-  };
-  // xin[f][off .. off+A) = aux part `part` of step t
-  auto load_aux = [&](float* xin, int off, int t, int part) {
-    for (int i = tid; i < kFolds * A; i += kThreads) {
-      const int f = i / A, a = i % A;
-      xin[f * KX + off + a] = f < nf ? rnd<W>(ld(aux_row(t, f) + part * A + a)) : 0.f;
-    }
-  };
-
-  for (int i = tid; i < kFolds * R; i += kThreads) { h1[i] = h1r[i] = h2[i] = h2r[i] = 0.f; }
-  if (tid < kFolds) { xs[tid] = 0.f; xa[tid * KX] = 0.f; }
-  load_cond(xa, 0);
+// All G blocks meet here: thread 0 of each block fences, adds one to the
+// counter and spins until it reaches G times the barrier's number
+// (`target`). Every block is resident (cooperative launch), so spinning
+// cannot deadlock; a wait of more than ~2^33 cycles (seconds) means a fault,
+// and the kernel traps rather than hang the card. (A two-level version, a
+// counter per 16 blocks, measured slower on the card.)
+__device__ __forceinline__ void grid_sync(uint32_t* bar, uint32_t& target, uint32_t G) {
   __syncthreads();
+  target += G;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const long long start = clock64();
+    while (ld_acquire(bar) < target) {
+      if (clock64() - start > (1ll << 33)) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
 
-  for (int t = 0; t < T; ++t) {
-    // P1: u = I [x, mel, a1] + b  -> us (f32) and xb (rounded)
-    for (int j = tid; j < R; j += kThreads) {
-      float acc[kFolds];
-      const float b = ld(w.I_b + j);
+// ---------------------------------------------------------------------------
+// products: out[row][fold] = sum_k Ws[row][k] * X[fold][k] over 16 x 8 tiles
+// ---------------------------------------------------------------------------
+
+// The tile (rows m0.., folds n0..) of one warp over depth [k0, k1), both
+// multiples of 16 (the operands are zero-padded). acc follows the mma
+// accumulator layout: acc[0], acc[1] at row m0 + g, folds n0 + 2t, +1;
+// acc[2], acc[3] at row m0 + g + 8, the same folds (g = lane / 4, t = lane %
+// 4). Rows at or past `nrows` read as zero weights.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void tile(const __nv_bfloat16* Ws, int nrows, int wks,
+                                     const __nv_bfloat16* X, int xks, int k0, int k1, int m0,
+                                     int n0, float (&acc)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool r0 = m0 + g < nrows, r1 = m0 + g + 8 < nrows;
+  const uint32_t* a0p =
+      reinterpret_cast<const uint32_t*>(Ws + (size_t)(r0 ? m0 + g : 0) * wks) + t;
+  const uint32_t* a1p =
+      reinterpret_cast<const uint32_t*>(Ws + (size_t)(r1 ? m0 + g + 8 : 0) * wks) + t;
+  const uint32_t* bp = reinterpret_cast<const uint32_t*>(X + (size_t)(n0 + g) * xks) + t;
+  // two independent accumulators, so that two mma are in flight (four
+  // measured slower on the card: more registers, more spills)
+  float e[4] = {0.f, 0.f, 0.f, 0.f}, o[4] = {0.f, 0.f, 0.f, 0.f};
+  auto step = [&](float (&dd)[4], int s) {
+    const int w = s * 8;  // 32-bit words per 16 bf16
+    mma_bf16(dd, r0 ? a0p[w] : 0u, r1 ? a1p[w] : 0u, r0 ? a0p[w + 4] : 0u,
+             r1 ? a1p[w + 4] : 0u, bp[w], bp[w + 4]);
+  };
+  int s = k0 / 16;
+  const int s1 = k1 / 16;
+  for (; s + 1 < s1; s += 2) {
+    step(e, s);
+    step(o, s + 1);
+  }
+  if (s < s1) step(e, s);
 #pragma unroll
-      for (int f = 0; f < kFolds; ++f) acc[f] = b;
-      dot_col(acc, xa, KX, K0, w.I_w, R, j);
-#pragma unroll
-      for (int f = 0; f < kFolds; ++f) { us[f * R + j] = acc[f]; xb[f * KX + j] = rnd<W>(acc[f]); }
+  for (int i = 0; i < 4; ++i) acc[i] = e[i] + o[i];
+}
+
+__device__ __forceinline__ void tile(const float* Ws, int nrows, int wks, const float* X,
+                                     int xks, int k0, int k1, int m0, int n0,
+                                     float (&acc)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool r0 = m0 + g < nrows, r1 = m0 + g + 8 < nrows;
+  const float2* w0 = reinterpret_cast<const float2*>(Ws + (size_t)(r0 ? m0 + g : 0) * wks);
+  const float2* w1 = reinterpret_cast<const float2*>(Ws + (size_t)(r1 ? m0 + g + 8 : 0) * wks);
+  const float2* x0 = reinterpret_cast<const float2*>(X + (size_t)(n0 + 2 * t) * xks);
+  const float2* x1 = reinterpret_cast<const float2*>(X + (size_t)(n0 + 2 * t + 1) * xks);
+  float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+#pragma unroll 4
+  for (int k = k0 / 2; k < k1 / 2; ++k) {
+    const float2 a = w0[k], b = w1[k], u = x0[k], v = x1[k];
+    c0 = fmaf(a.x, u.x, c0); c1 = fmaf(a.x, v.x, c1); c2 = fmaf(b.x, u.x, c2); c3 = fmaf(b.x, v.x, c3);
+    c0 = fmaf(a.y, u.y, c0); c1 = fmaf(a.y, v.y, c1); c2 = fmaf(b.y, u.y, c2); c3 = fmaf(b.y, v.y, c3);
+  }
+  acc[0] = r0 ? c0 : 0.f; acc[1] = r0 ? c1 : 0.f;
+  acc[2] = r1 ? c2 : 0.f; acc[3] = r1 ? c3 : 0.f;
+}
+
+// Phase timers, compiled in only with -DWAVERNN_PROFILE: thread 0 of each
+// block adds the clock64() cycles since the last mark to phase i's counter,
+// so a launch leaves the cycles per phase summed over blocks and steps.
+#ifdef WAVERNN_PROFILE
+constexpr int kPhases = 17;  // 13 phases of a step, then 4 parts within them
+__device__ unsigned long long g_phase_cycles[kPhases];
+#define PHASE(i, mark)                                                     \
+  do {                                                                     \
+    if (threadIdx.x == 0) {                                                \
+      const long long now_ = clock64();                                    \
+      atomicAdd(&g_phase_cycles[i], (unsigned long long)(now_ - (mark)));  \
+      (mark) = now_;                                                       \
+    }                                                                      \
+  } while (0)
+#define PART(i, start) PHASE(13 + (i), start)
+#define MARK(v) long long v = clock64()
+#else
+#define PHASE(i, mark)
+#define PART(i, start)
+#define MARK(v)
+#endif
+
+template <typename W, typename Cd>
+struct Params {
+  const Cd* mels;     // (T, F, M) when time_major, else (F, T, M)
+  const Cd* aux;      // (T, F, 4A) or (F, T, 4A)
+  const W* w[16];     // the packed weights, in W_NAMES order
+  int32_t* labels;    // (F, T)
+  W* xch;             // exchange rows: 5 x [2][F][ceil8(R)], then 2 x [2][F][ceil8(FC)]
+  unsigned long long* arg;  // [2][F] argmax keys, zeroed by the caller
+  float* state;       // [G][F * (12 nu + nq)] f32, block-private
+  uint32_t* bar;      // grid-barrier counter, zeroed by the caller
+  Dims d;
+  int greedy, time_major;
+  int csize;          // blocks per cluster (1, 2 or 4)
+  uint32_t seed_lo, seed_hi;
+};
+
+template <typename W, typename Cd>
+__global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, Cd> p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Dims d = p.d;
+  const Layout L = layout(d);
+  W* wsm = reinterpret_cast<W*>(smem);
+  W* X = wsm + L.xstage;
+  float* bias = reinterpret_cast<float*>(smem + L.bias_off);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int F = d.F, T = d.T, M = d.M, A = d.A, R = d.R, FC = d.FC, C = d.C;
+  const int nu = d.nu, nv = d.nv, nq = d.nq, G = d.G;
+  const int blk = blockIdx.x;
+  const int j0 = blk * nu, v0 = blk * nv, q0 = blk * nq;
+  // what this block owns: units, fc columns, classes
+  const int mu = max(0, min(nu, R - j0)), mv = max(0, min(nv, FC - v0));
+  const int mq = max(0, min(nq, C - q0));
+  const int K0 = 1 + M + A;
+  // A cluster stages its operands together (below), so its blocks run the
+  // same layers: a layer runs in a block when any block of its cluster owns
+  // some of it (a block that owns none computes rows it never writes).
+  const int csize = p.csize, rank = blk % csize, first = blk - rank;
+  const bool use_u = first * nu < R, use_v = first * nv < FC, use_q = first * nq < C;
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem + L.mbar_off);
+  uint32_t mphase = 0;
+  if (tid == 0) mbar_init(mbar);
+
+  // ---- the block's weight slices into shared memory, once ----
+  const W* wmat[8] = {p.w[0], p.w[2], p.w[4], p.w[6], p.w[8], p.w[10], p.w[12], p.w[14]};
+  const int ncols[8] = {R, 3 * R, 3 * R, 3 * R, 3 * R, FC, FC, C};
+  for (int i = 0; i < 8; ++i) {
+    const int n = L.rows[i] * L.ks[i];
+    for (int e = tid; e < n; e += kThreads) {
+      const int r = e / L.ks[i], k = e % L.ks[i];
+      int c = -1;  // the global column local row r holds
+      if (i == 0) c = r < mu ? j0 + r : -1;
+      else if (i <= 4) c = r % nu < mu ? (r / nu) * R + j0 + r % nu : -1;
+      else if (i <= 6) c = r < mv ? v0 + r : -1;
+      else c = r < mq ? q0 + r : -1;
+      // I's operand is [mel, a1, x] (x last, so that mel and a1 start on
+      // 16-byte boundaries); the weights' rows are [x, mel, a1]
+      const int gk = i == 0 ? (k < M + A ? k + 1 : 0) : k;
+      wsm[L.off[i] + e] =
+          (c >= 0 && k < L.K[i]) ? wmat[i][(size_t)gk * ncols[i] + c] : from_f<W>(0.f);
     }
-    __syncthreads();
-    // P2: GRU1 on u; u += h1 -> xa = [u, a2]
-    load_aux(xa, R, t, 1);
-    for (int j = tid; j < R; j += kThreads) {
-      float hn[kFolds];
-      gru_unit(xb, KX, R, h1r, h1, R, j, w.g1_wi, w.g1_bi, w.g1_wh, w.g1_bn, hn);
+  }
+  // biases: bI[nu] b1i[3nu] b1n[nu] b2i[3nu] b2n[nu] bf1[nv] bf2[nv] bf3[nq]
+  float* bI = bias;
+  float* b1i = bI + nu;
+  float* b1n = b1i + 3 * nu;
+  float* b2i = b1n + nu;
+  float* b2n = b2i + 3 * nu;
+  float* bf1 = b2n + nu;
+  float* bf2 = bf1 + nv;
+  float* bf3 = bf2 + nv;
+  for (int e = tid; e < nu; e += kThreads) {
+    const bool own = e < mu;
+    bI[e] = own ? to_f(p.w[1][j0 + e]) : 0.f;
+    b1n[e] = own ? to_f(p.w[5][j0 + e]) : 0.f;
+    b2n[e] = own ? to_f(p.w[9][j0 + e]) : 0.f;
+    for (int gate = 0; gate < 3; ++gate) {
+      b1i[gate * nu + e] = own ? to_f(p.w[3][gate * R + j0 + e]) : 0.f;
+      b2i[gate * nu + e] = own ? to_f(p.w[7][gate * R + j0 + e]) : 0.f;
+    }
+  }
+  for (int e = tid; e < nv; e += kThreads) {
+    bf1[e] = e < mv ? to_f(p.w[11][v0 + e]) : 0.f;
+    bf2[e] = e < mv ? to_f(p.w[13][v0 + e]) : 0.f;
+  }
+  for (int e = tid; e < nq; e += kThreads) bf3[e] = e < mq ? to_f(p.w[15][q0 + e]) : 0.f;
+
+  // ---- block-private state (f32, global, [row][fold]): h1, h2, u [nu];
+  // gh1, gh2, gx [3nu]; scores [nq] ----
+  float* h1 = p.state + (size_t)blk * F * (12 * nu + nq);
+  float* h2 = h1 + (size_t)nu * F;
+  float* us = h2 + (size_t)nu * F;
+  float* gh1 = us + (size_t)nu * F;
+  float* gh2 = gh1 + (size_t)3 * nu * F;
+  float* gx = gh2 + (size_t)3 * nu * F;
+  float* scores = gx + (size_t)3 * nu * F;
+  for (size_t e = tid; e < (size_t)2 * nu * F; e += kThreads) h1[e] = 0.f;  // h1, h2
+
+  // ---- exchange rows, [2][F][stride] each ----
+  const int RS = ceil_to(R, 8), FS = ceil_to(FC, 8);
+  W* const xu1 = p.xch;
+  W* const xu2 = xu1 + (size_t)2 * F * RS;
+  W* const xu3 = xu2 + (size_t)2 * F * RS;
+  W* const xh1 = xu3 + (size_t)2 * F * RS;
+  W* const xh2 = xh1 + (size_t)2 * F * RS;
+  W* const xf1 = xh2 + (size_t)2 * F * RS;
+  W* const xf2 = xf1 + (size_t)2 * F * FS;
+
+  const size_t step_rows = p.time_major ? (size_t)F : 1;
+  const size_t fold_rows = p.time_major ? 1 : (size_t)T;
+  const float cls = (float)(C - 1);
+  const int ksm = L.ksmax, fchunk = d.fchunk;
+  constexpr int kVec = 16 / sizeof(W);  // elements per 16-byte copy
+  uint32_t target = 0;
+
+  // put(e, load(e)) for e < n, with kBatch loads of a thread in flight at
+  // once: the global loads are independent, so their latency is paid once
+  // per batch rather than once per element
+  constexpr int kBatch = 8;
+  auto gather = [&](int n, auto&& load, auto&& put) {
+    for (int base = tid; base < n; base += kBatch * kThreads) {
+      float v[kBatch];
 #pragma unroll
-      for (int f = 0; f < kFolds; ++f) {
-        const float u = us[f * R + j] + hn[f];
-        us[f * R + j] = u;
-        xa[f * KX + j] = rnd<W>(u);
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = base + u * kThreads;
+        v[u] = e < n ? load(e) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = base + u * kThreads;
+        if (e < n) put(e, v[u]);
+      }
+    }
+  };
+  // The conditioning columns (mel, a1..a4) come by cp.async when they are
+  // plain 16-byte copies (conditioning in the weight type, every width a
+  // multiple of 16 bytes), else they are gathered and converted through
+  // registers. They depend on nothing the step computes, so when all folds
+  // fit one stage they are staged before the barrier that precedes their
+  // layer and their latency hides behind it.
+  const bool cond_async = sizeof(Cd) == sizeof(W) && (M * sizeof(W)) % 16 == 0 &&
+                          (A * sizeof(W)) % 16 == 0 && (R * sizeof(W)) % 16 == 0 &&
+                          (FC * sizeof(W)) % 16 == 0;
+  const bool single = F <= fchunk;  // one stage holds every fold
+  // X[f][col, col + n) <- the mel row (part < 0) or aux part `part` of
+  // step t, fold f0 + f
+  auto stage_cond = [&](int col, int part, int t, int f0, int nf) {
+    MARK(start);
+    const Cd* base = part < 0 ? p.mels : p.aux;
+    const int rowlen = part < 0 ? M : 4 * A, n = part < 0 ? M : A;
+    const int off = part < 0 ? 0 : part * A;
+    auto src = [&](int f) {
+      return base + ((size_t)t * step_rows + (size_t)(f0 + f) * fold_rows) * rowlen + off;
+    };
+    if (cond_async) {
+      const int vec = n * (int)sizeof(W) / 16;
+      for (int e = tid; e < nf * vec; e += kThreads) {
+        const int f = e / vec, c = e % vec;
+        cp_async16(X + (size_t)f * ksm + col + c * kVec, src(f) + c * kVec);
+      }
+    } else {
+      gather(nf * n, [&](int e) { return to_f(src(e / n)[e % n]); },
+             [&](int e, float v) { X[(size_t)(e / n) * ksm + col + e % n] = from_f<W>(v); });
+    }
+    PART(3, start);
+  };
+  // X[f][from, to) <- 0 (the operand's padding to a multiple of 16)
+  auto stage_zero = [&](int from, int to, int nf) {
+    const int n = to - from;
+    for (int e = tid; e < nf * n; e += kThreads)
+      X[(size_t)(e / n) * ksm + from + e % n] = from_f<W>(0.f);
+  };
+  // X[f][0, width) <- exchange rows src[f0 + f][.], read through L2
+  // X[f][0, width) <- exchange rows src[f0 + f][.], read through L2. In a
+  // cluster of csize blocks, each block fetches every csize-th row once, by
+  // a bulk copy multicast into the shared memory of all the cluster's
+  // blocks, so L2 serves each row once per cluster instead of once per
+  // block; the cluster first meets, so that no block's stage is written
+  // while it still reads it, and each block's mbarrier counts the bytes in.
+  auto stage_rows = [&](const W* src, int stride, int width, int f0, int nf) {
+    const int vec = width / kVec, head = vec * kVec, rest = width - head;
+    if (csize > 1 && (stride * (int)sizeof(W)) % 16 == 0) {
+      const uint32_t row_bytes = head * sizeof(W);
+      cluster_sync();
+      if (tid == 0) mbar_expect(mbar, nf * row_bytes);
+      if (row_bytes) {
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        for (int f = rank + tid * csize; f < nf; f += kThreads * csize)
+          bulk_multicast(X + (size_t)f * ksm, src + (size_t)(f0 + f) * stride, row_bytes, mbar,
+                         (uint16_t)((1u << csize) - 1));
+      }
+    } else {
+      // every block reads the same rows: each starts at its own offset, so
+      // that the blocks' requests spread over the L2 slices
+      const int n = nf * vec, rot = (int)((long long)blk * n / G);
+      for (int i = tid; i < n; i += kThreads) {
+        const int e = i + rot < n ? i + rot : i + rot - n;
+        const int f = e / vec, c = e % vec;
+        cp_async16(X + (size_t)f * ksm + c * kVec, src + (size_t)(f0 + f) * stride + c * kVec);
+      }
+    }
+    if (rest)
+      gather(nf * rest,
+             [&](int e) { return to_f(__ldcg(src + (size_t)(f0 + e / rest) * stride + head +
+                                            e % rest)); },
+             [&](int e, float v) {
+               X[(size_t)(e / rest) * ksm + head + e % rest] = from_f<W>(v);
+             });
+    if (csize > 1 && (stride * (int)sizeof(W)) % 16 == 0) {
+      mbar_wait(mbar, mphase);
+      mphase ^= 1;
+    }
+  };
+  auto stage_done = [&]() {
+    cp_async_wait_all();
+    __syncthreads();
+  };
+  // the conditioning and padding columns of each layer's operand
+  const int kI = ceil_to(K0, 16), kR = ceil_to(R, 16), kRA = ceil_to(R + A, 16);
+  const int kF = ceil_to(FC, 16), kFA = ceil_to(FC + A, 16);
+  auto cond_I = [&](int t, int f0, int nf) {  // [mel, a1, x, 0...]: x comes later
+    stage_cond(0, -1, t, f0, nf);
+    stage_cond(M, 0, t, f0, nf);
+    stage_zero(M + A + 1, kI, nf);
+  };
+  auto cond_aux = [&](int width, int part, int t, int f0, int nf) {
+    stage_cond(width, part, t, f0, nf);
+    stage_zero(width + A, width == R ? kRA : kFA, nf);
+  };
+  // out = Ws (matrix i) . X over folds [f0, f0 + nf); epi(row, fold, value)
+  auto product = [&](int i, int f0, int nf, auto&& epi) {
+    MARK(start);
+    const int rows = L.rows[i], mt = (rows + 15) / 16, nt = (nf + 7) / 8;
+    const int kpad = ceil_to(L.K[i], 16), g = lane >> 2, tq = lane & 3;
+    for (int w = warp; w < mt * nt; w += kWarps) {
+      const int m0 = (w % mt) * 16, n0 = (w / mt) * 8;
+      float acc[4];
+      tile(wsm + L.off[i], rows, L.ks[i], X, ksm, 0, kpad, m0, n0, acc);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = m0 + g + (q >> 1) * 8, f = n0 + 2 * tq + (q & 1);
+        if (r < rows && f < nf) epi(r, f0 + f, acc[q]);
       }
     }
     __syncthreads();
-    // P3: GRU2 on [u, a2]; u += h2 -> xb = [u, a3]; publish rounded h1
-    load_aux(xb, R, t, 2);
-    for (int j = tid; j < R; j += kThreads) {
-      float hn[kFolds];
-      gru_unit(xa, KX, R + A, h2r, h2, R, j, w.g2_wi, w.g2_bi, w.g2_wh, w.g2_bn, hn);
-#pragma unroll
-      for (int f = 0; f < kFolds; ++f) {
-        const float u = us[f * R + j] + hn[f];
-        xb[f * KX + j] = rnd<W>(u);
-        h1r[f * R + j] = rnd<W>(h1[f * R + j]);
-      }
+    PART(1, start);
+  };
+  // one GRU's gates for the block's units: h' = GRU(gx + bi, gh, bn; h);
+  // u += h'; rounded h' -> xh, rounded u -> xu
+  auto gates = [&](const float* bi, const float* bn, const float* gh, float* h, W* xh,
+                   W* xu) {
+    MARK(start);
+    for (int e = tid; e < mu * F; e += kThreads) {
+      const int i = e / F, f = e % F;
+      const size_t a = (size_t)i * F + f, b = a + (size_t)nu * F, c = b + (size_t)nu * F;
+      const float r = sigm((gx[a] + bi[i]) + gh[a]);
+      const float z = sigm((gx[b] + bi[nu + i]) + gh[b]);
+      const float n = tanhf((gx[c] + bi[2 * nu + i]) + r * (gh[c] + bn[i]));
+      const float hn = (1.0f - z) * n + z * h[a];
+      h[a] = hn;
+      const float u = us[a] + hn;
+      us[a] = u;
+      xh[(size_t)f * RS + j0 + i] = from_f<W>(hn);
+      xu[(size_t)f * RS + j0 + i] = from_f<W>(u);
     }
     __syncthreads();
-    // P4: fc1 = relu(W [u, a3] + b) -> xa = [fc1, a4]; publish rounded h2
-    load_aux(xa, FC, t, 3);
-    for (int j = tid; j < FC; j += kThreads) {
-      float acc[kFolds];
-      const float b = ld(w.fc1_b + j);
-#pragma unroll
-      for (int f = 0; f < kFolds; ++f) acc[f] = b;
-      dot_col(acc, xb, KX, R + A, w.fc1_w, FC, j);
-#pragma unroll
-      for (int f = 0; f < kFolds; ++f) xa[f * KX + j] = rnd<W>(fmaxf(acc[f], 0.f));
+    PART(2, start);
+  };
+
+  // a layer over all folds, one stage at a time: the conditioning columns
+  // (unless staged before the barrier), the exchange rows, the product
+  auto layer = [&](int mat, const W* src, int stride, int width, bool prestaged,
+                   auto&& cond, auto&& epi) {
+    for (int f0 = 0; f0 < F; f0 += fchunk) {
+      const int nf = min(fchunk, F - f0);
+      if (!prestaged) cond(f0, nf);
+      MARK(start);
+      stage_rows(src, stride, width, f0, nf);
+      stage_done();
+      PART(0, start);
+      product(mat, f0, nf, epi);
     }
-    for (int i = tid; i < kFolds * R; i += kThreads) h2r[i] = rnd<W>(h2[i]);
-    __syncthreads();
-    // P5: fc2 = relu(W [fc1, a4] + b) -> xb
-    for (int j = tid; j < FC; j += kThreads) {
-      float acc[kFolds];
-      const float b = ld(w.fc2_b + j);
-#pragma unroll
-      for (int f = 0; f < kFolds; ++f) acc[f] = b;
-      dot_col(acc, xa, KX, FC + A, w.fc2_w, FC, j);
-#pragma unroll
-      for (int f = 0; f < kFolds; ++f) xb[f * KX + j] = rnd<W>(fmaxf(acc[f], 0.f));
+  };
+  auto no_cond = [&](int width, int kpad) {
+    return [&, width, kpad](int, int nf) { stage_zero(width, kpad, nf); };
+  };
+
+  MARK(mark);
+  if (csize > 1) cluster_sync();  // every mbarrier of the cluster is initialised
+  if (single && use_u) cond_I(0, 0, F);
+  for (int t = 0; t <= T; ++t) {
+    const int par = t & 1, prv = par ^ 1;
+    // x_{t-1} of every fold from the winning key (0 at t = 0); block 0
+    // writes the labels of step t-1 and clears the keys of step t
+    auto x_of = [&](int f) {
+      if (t == 0) return 0.0f;
+      const unsigned long long key = __ldcg(p.arg + (size_t)prv * F + f);
+      const int idx = (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
+      if (blk == 0) p.labels[(size_t)f * T + (t - 1)] = idx;
+      return 2.0f * (float)idx / cls - 1.0f;
+    };
+    if (t == T) {
+      if (blk == 0)
+        for (int f = tid; f < F; f += kThreads) x_of(f);
+      break;
     }
-    __syncthreads();
-    // P6: logits = W fc2 + b (+ Gumbel noise); prefetch step t+1's conditioning
-    if (t + 1 < T) load_cond(xa, t + 1);
-    for (int c = tid; c < C; c += kThreads) {
-      float acc[kFolds];
-      const float b = ld(w.fc3_b + c);
-#pragma unroll
-      for (int f = 0; f < kFolds; ++f) acc[f] = b;
-      dot_col(acc, xb, KX, FC, w.fc3_w, C, c);
-#pragma unroll
-      for (int f = 0; f < kFolds; ++f) {
-        float s = acc[f];
-        if (!greedy) {
-          const uint32_t bits = philox((uint32_t)c, (uint32_t)(f0 + f), (uint32_t)t, 0u,
-                                       seed_lo, seed_hi);
-          const float u = (float)(bits & 0x7FFFFFu) * (1.0f / 8388608.0f) + 1e-7f;
-          s += -logf(-logf(u));
+    // P1: u = I [mel, a1, x] + b
+    if (use_u) {
+      for (int f0 = 0; f0 < F; f0 += fchunk) {
+        const int nf = min(fchunk, F - f0);
+        if (!single) cond_I(t, f0, nf);
+        for (int f = tid; f < nf; f += kThreads) {
+          X[(size_t)f * ksm + M + A] = from_f<W>(x_of(f0 + f));
+          if (blk == 0) p.arg[(size_t)par * F + f0 + f] = 0ull;
         }
-        logits[f * C + c] = s;
+        stage_done();
+        product(0, f0, nf, [&](int r, int f, float v) {
+          if (r < mu) {
+            const float u = v + bI[r];
+            us[(size_t)r * F + f] = u;
+            xu1[((size_t)par * F + f) * RS + j0 + r] = from_f<W>(u);
+          }
+        });
       }
     }
-    __syncthreads();
-    // P7: argmax per fold (one warp per fold, lowest index wins ties)
-    const int warp = tid >> 5, lane = tid & 31;
-    if (warp < kFolds) {
-      const int f = warp;
-      float best = -__int_as_float(0x7f800000);  // -inf
-      int idx = C;
-      for (int c = lane; c < C; c += 32) {
-        const float v = logits[f * C + c];
-        if (v > best) { best = v; idx = c; }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-        if (ob > best || (ob == best && oi < idx)) { best = ob; idx = oi; }
-      }
-      if (lane == 0) {
-        if (f < nf) labels[(size_t)(f0 + f) * T + t] = idx;
-        const float x = 2.0f * (float)idx / cls - 1.0f;
-        xs[f] = x;
-        xa[f * KX] = rnd<W>(x);
+    PHASE(0, mark);  // x from the keys, I-dense
+    // P1 (cont.): the hidden products of step t-1's states
+    if (use_u) {
+      layer(2, xh1 + (size_t)prv * F * RS, RS, R, false, no_cond(R, kR),
+            [&](int r, int f, float v) { gh1[(size_t)r * F + f] = v; });
+      layer(4, xh2 + (size_t)prv * F * RS, RS, R, false, no_cond(R, kR),
+            [&](int r, int f, float v) { gh2[(size_t)r * F + f] = v; });
+    }
+    PHASE(1, mark);  // hidden products
+    grid_sync(p.bar, target, G);
+    PHASE(2, mark);  // barrier
+    // P2: GRU1 on u; u += h1
+    if (use_u) {
+      layer(1, xu1 + (size_t)par * F * RS, RS, R, false, no_cond(R, kR),
+            [&](int r, int f, float v) { gx[(size_t)r * F + f] = v; });
+      gates(b1i, b1n, gh1, h1, xh1 + (size_t)par * F * RS, xu2 + (size_t)par * F * RS);
+      if (single) cond_aux(R, 1, t, 0, F);
+    }
+    PHASE(3, mark);  // GRU1
+    grid_sync(p.bar, target, G);
+    PHASE(4, mark);  // barrier
+    // P3: GRU2 on [u, a2]; u += h2
+    if (use_u) {
+      layer(3, xu2 + (size_t)par * F * RS, RS, R, single,
+            [&](int f0, int nf) { cond_aux(R, 1, t, f0, nf); },
+            [&](int r, int f, float v) { gx[(size_t)r * F + f] = v; });
+      gates(b2i, b2n, gh2, h2, xh2 + (size_t)par * F * RS, xu3 + (size_t)par * F * RS);
+    }
+    if (single && use_v) cond_aux(R, 2, t, 0, F);
+    PHASE(5, mark);  // GRU2
+    grid_sync(p.bar, target, G);
+    PHASE(6, mark);  // barrier
+    // P4: fc1 = relu(W [u, a3] + b)
+    if (use_v) {
+      layer(5, xu3 + (size_t)par * F * RS, RS, R, single,
+            [&](int f0, int nf) { cond_aux(R, 2, t, f0, nf); },
+            [&](int r, int f, float v) {
+              if (r < mv)
+                xf1[((size_t)par * F + f) * FS + v0 + r] = from_f<W>(fmaxf(v + bf1[r], 0.f));
+            });
+      if (single) cond_aux(FC, 3, t, 0, F);
+    }
+    PHASE(7, mark);  // fc1
+    grid_sync(p.bar, target, G);
+    PHASE(8, mark);  // barrier
+    // P5: fc2 = relu(W [fc1, a4] + b)
+    if (use_v) {
+      layer(6, xf1 + (size_t)par * F * FS, FS, FC, single,
+            [&](int f0, int nf) { cond_aux(FC, 3, t, f0, nf); },
+            [&](int r, int f, float v) {
+              if (r < mv)
+                xf2[((size_t)par * F + f) * FS + v0 + r] = from_f<W>(fmaxf(v + bf2[r], 0.f));
+            });
+    }
+    PHASE(9, mark);  // fc2
+    grid_sync(p.bar, target, G);
+    PHASE(10, mark);  // barrier
+    // P6: logits of the block's classes (+ Gumbel noise), best per fold
+    if (use_q) {
+      layer(7, xf2 + (size_t)par * F * FS, FS, FC, false, no_cond(FC, kF),
+            [&](int r, int f, float v) {
+              if (r < mq) {
+                float s = v + bf3[r];
+                if (!p.greedy) {
+                  const uint32_t bits = philox((uint32_t)(q0 + r), (uint32_t)f, (uint32_t)t,
+                                               0u, p.seed_lo, p.seed_hi);
+                  const float u = (float)(bits & 0x7FFFFFu) * (1.0f / 8388608.0f) + 1e-7f;
+                  s += -logf(-logf(u));
+                }
+                scores[(size_t)r * F + f] = s;
+              }
+            });
+      for (int f = tid; f < F && mq > 0; f += kThreads) {
+        float best = scores[f];
+        int idx = 0;
+        for (int r = 1; r < mq; ++r) {
+          const float s = scores[(size_t)r * F + f];
+          if (s > best) { best = s; idx = r; }
+        }
+        atomicMax(p.arg + (size_t)par * F + f, arg_key(best, q0 + idx));
       }
     }
-    __syncthreads();
+    if (single && use_u && t + 1 < T) cond_I(t + 1, 0, F);
+    PHASE(11, mark);  // fc3, argmax
+    grid_sync(p.bar, target, G);
+    PHASE(12, mark);  // barrier
   }
 }
 
 template <typename W, typename Cd>
-int launch(const void* mels, const void* aux, const void* const* wp, void* labels, int F,
-           int T, int M, int A, int R, int FC, int C, int greedy, int time_major,
-           unsigned long long seed, cudaStream_t stream) {
-  Weights<W> w;
-  const W** dst = reinterpret_cast<const W**>(&w);
-  for (int i = 0; i < 16; ++i) dst[i] = static_cast<const W*>(wp[i]);
-  const int K0 = 1 + M + A;
-  const int KX = K0 > ((R > FC ? R : FC) + A) ? K0 : ((R > FC ? R : FC) + A);
-  const size_t smem = sizeof(float) * ((size_t)kFolds * (2 * KX + 5 * R + C) + kFolds);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+int launch(const void* mels, const void* aux, const void* const* wp, void* labels, void* xch,
+           void* arg, void* state, void* bar, const Dims& d, int smem, int greedy,
+           int time_major, unsigned long long seed, cudaStream_t stream) {
+  const Layout L = layout(d);
+  if (L.bytes != smem || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   auto kernel = wavernn_sample_kernel<W, Cd>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (F + kFolds - 1) / kFolds;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Cd*>(mels), static_cast<const Cd*>(aux), w,
-      static_cast<int32_t*>(labels), F, T, M, A, R, FC, C, greedy, time_major,
-      (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32));
+  int per_sm = 0, dev = 0, sms = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if (d.G > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // clusters of 4 (else 2) blocks share their staging, if the card can keep
+  // the whole grid resident in clusters of that size
+  int csize = 1;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(d.G);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  for (int c = 4; c >= 2; c /= 2) {
+    if (d.G % c) continue;
+    attrs[1].val.clusterDim.x = c;
+    attrs[1].val.clusterDim.y = 1;
+    attrs[1].val.clusterDim.z = 1;
+    cfg.attrs = attrs + 1;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) == cudaSuccess &&
+        clusters * c >= d.G) {
+      csize = c;
+      break;
+    }
+    cudaGetLastError();  // a refused query is not an error of the launch
+  }
+  Params<W, Cd> p;
+  p.mels = static_cast<const Cd*>(mels);
+  p.aux = static_cast<const Cd*>(aux);
+  for (int i = 0; i < 16; ++i) p.w[i] = static_cast<const W*>(wp[i]);
+  p.labels = static_cast<int32_t*>(labels);
+  p.xch = static_cast<W*>(xch);
+  p.arg = static_cast<unsigned long long*>(arg);
+  p.state = static_cast<float*>(state);
+  p.bar = static_cast<uint32_t*>(bar);
+  p.d = d;
+  p.greedy = greedy;
+  p.time_major = time_major;
+  p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
+  p.seed_hi = (uint32_t)(seed >> 32);
+  p.csize = csize;
+  attrs[1].val.clusterDim.x = csize;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = csize > 1 ? 2 : 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -324,23 +823,46 @@ int launch(const void* mels, const void* aux, const void* const* wp, void* label
 
 // The 16 packed weights in one dtype (f32 when bf16 == 0, else bf16); mels
 // (T, F, M) and aux (T, F, 4A) in that dtype when time_major, else mels
-// (F, T, M) and aux (F, T, 4A) in f32; labels (F, T) int32. Launches on
-// `stream` without synchronising; returns the CUDA error code of the launch.
+// (F, T, M) and aux (F, T, 4A) in f32; labels (F, T) int32. The plan (G
+// blocks; nu units, nv fc columns and nq classes per block; fchunk folds per
+// stage; smem bytes) comes from `plan` in wavernn_sample.py, and the
+// workspaces at the sizes it gives: xch (exchange rows, weight dtype), arg
+// (zeroed uint64), state (f32), bar (a zeroed uint32). Launches
+// cooperatively on `stream` without synchronising; returns the CUDA error
+// code of the launch (cudaErrorInvalidValue when `smem` disagrees with the
+// kernel's own layout, cudaErrorCooperativeLaunchTooLarge when G blocks
+// cannot all be resident).
 extern "C" int wavernn_sample_launch(const void* mels, const void* aux,
-                                     const void* const* weights, void* labels, int F, int T,
-                                     int M, int A, int R, int FC, int C, int bf16, int greedy,
-                                     int time_major, unsigned long long seed, void* stream) {
+                                     const void* const* weights, void* labels, void* xch,
+                                     void* arg, void* state, void* bar, int F, int T, int M,
+                                     int A, int R, int FC, int C, int G, int nu, int nv, int nq,
+                                     int fchunk, int smem, int bf16, int greedy, int time_major,
+                                     unsigned long long seed, void* stream) {
   if (F <= 0 || T <= 0) return 0;
+  const Dims d{F, T, M, A, R, FC, C, G, nu, nv, nq, fchunk, bf16 ? 2 : 4};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16)
-    return launch<float, float>(mels, aux, weights, labels, F, T, M, A, R, FC, C, greedy,
-                                time_major, seed, s);
+    return launch<float, float>(mels, aux, weights, labels, xch, arg, state, bar, d, smem,
+                                greedy, time_major, seed, s);
   if (time_major)
-    return launch<__nv_bfloat16, __nv_bfloat16>(mels, aux, weights, labels, F, T, M, A, R,
-                                                FC, C, greedy, 1, seed, s);
-  return launch<__nv_bfloat16, float>(mels, aux, weights, labels, F, T, M, A, R, FC, C,
-                                      greedy, 0, seed, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(mels, aux, weights, labels, xch, arg, state,
+                                                bar, d, smem, greedy, 1, seed, s);
+  return launch<__nv_bfloat16, float>(mels, aux, weights, labels, xch, arg, state, bar, d,
+                                      smem, greedy, 0, seed, s);
 }
+
+#ifdef WAVERNN_PROFILE
+// The phase counters (cycles summed over blocks and steps) into `out`
+// (kPhases values), then zeroes them. Synchronises the device.
+extern "C" int wavernn_sample_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(unsigned long long) * kPhases);
+  const unsigned long long zeros[kPhases] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase_cycles, zeros, sizeof(zeros));
+  return (int)err;
+}
+#endif
 
 extern "C" const char* wavernn_sample_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

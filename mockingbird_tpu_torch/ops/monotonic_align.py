@@ -95,13 +95,15 @@ def maximum_path(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (path * mask_f).to(in_dtype)
 
 
-# the kernel keeps one bit per cell of the band's decisions in shared memory
 _SMEM_LIMIT = 232448
 
 
 def smem_bytes(t_y: int, t_x: int) -> int:
-    threads = max(32, -(-t_x // 32) * 32)
-    return 4 * (2 * threads + t_y * (threads // 32))
+    """The kernel's shared memory: with C = ceil(T_x / 32) columns per lane,
+    one decision word of C bits per lane and row, of 1, 2 or 4 bytes."""
+    c = max(1, -(-t_x // 32))
+    word = 1 if c <= 8 else 2 if c <= 16 else 4
+    return 32 * word * t_y
 
 
 def maximum_path_cuda(neg_cent: torch.Tensor, t_ys: torch.Tensor,
@@ -119,7 +121,7 @@ def maximum_path_cuda(neg_cent: torch.Tensor, t_ys: torch.Tensor,
         raise ValueError("neg_cent must be contiguous")
     b, t_y, t_x = neg_cent.shape
     if t_x > 1024:
-        raise ValueError(f"T_x = {t_x} > 1024: one block holds one row")
+        raise ValueError(f"T_x = {t_x} > 1024: one warp holds one row")
     if smem_bytes(t_y, t_x) > _SMEM_LIMIT:
         raise ValueError(f"(T_y, T_x) = ({t_y}, {t_x}) needs {smem_bytes(t_y, t_x)} B of "
                          f"shared memory, more than {_SMEM_LIMIT}")
@@ -128,7 +130,7 @@ def maximum_path_cuda(neg_cent: torch.Tensor, t_ys: torch.Tensor,
     t_xs = t_xs.to(dev, torch.int32).contiguous()
     if t_ys.shape != (b,) or t_xs.shape != (b,):
         raise ValueError(f"lengths {tuple(t_ys.shape)}/{tuple(t_xs.shape)}, expected ({b},)")
-    path = torch.empty_like(neg_cent)
+    path = torch.zeros_like(neg_cent)      # the kernel writes only the ones
     from .build import load
     lib = _bind(load("monotonic_align"))
     with torch.cuda.device(dev):

@@ -8,6 +8,13 @@ per step, for F independent folds, I-dense → GRU1 → GRU2 → fc1 → fc2 →
 → Gumbel-max (or greedy argmax) sample fed back as the next input, the whole
 T-step loop inside one launch.
 
+The kernel is persistent and weight-stationary: one cooperative launch of
+at most one block per SM, each block holding its slice of every weight
+matrix in shared memory for the whole launch and exchanging layer outputs
+with the others through global memory between grid barriers. ``plan``
+places the slices, a pure function of the widths, the fold count, the
+weight dtype and the SM count.
+
 ``wavernn_sample`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors. Weight layout matches flax ``nn.GRUCell``
 (r = σ(ir·x + hr·h), z = σ(iz·x + hz·h), n = tanh(in·x + r·(hn·h + bn)),
@@ -22,7 +29,8 @@ against the plain one.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -33,6 +41,90 @@ _NOISE_CHUNK = 1 << 22
 W_NAMES = ("I_w", "I_b", "g1_wi", "g1_bi", "g1_wh", "g1_bn",
            "g2_wi", "g2_bi", "g2_wh", "g2_bn",
            "fc1_w", "fc1_b", "fc2_w", "fc2_b", "fc3_w", "fc3_b")
+
+
+SMEM_LIMIT = 232448      # dynamic shared memory one block may use on sm_90
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Where the kernel's launch puts things: ``grid`` blocks, each owning
+    ``nu`` GRU units (their I, g1 and g2 rows), ``nv`` columns of fc1 and of
+    fc2 and ``nq`` classes of fc3; activations staged ``fchunk`` folds at a
+    time; ``smem`` bytes of shared memory per block; workspaces of
+    ``exchange_elems`` (weight dtype), ``arg_elems`` (uint64) and
+    ``state_elems`` (f32) elements; ``exchange_bytes`` written to the
+    exchange buffers per step (by all blocks) and ``staged_bytes`` staged
+    from them into shared memory per step (summed over blocks; a cluster's
+    blocks share one read of each row from L2)."""
+    grid: int
+    nu: int
+    nv: int
+    nq: int
+    fchunk: int
+    smem: int
+    exchange_elems: int
+    arg_elems: int
+    state_elems: int
+    exchange_bytes: int
+    staged_bytes: int
+
+    def owned(self, width: int, per_block: int) -> List[Tuple[int, int]]:
+        """The [start, stop) column range of each block for a layer of
+        ``width`` columns sliced ``per_block`` at a time (empty when past)."""
+        return [(min(b * per_block, width), min((b + 1) * per_block, width))
+                for b in range(self.grid)]
+
+
+def _smem_bytes(rows, ks, ksmax, fchunk, nbias, wbytes) -> int:
+    """``layout`` in csrc/wavernn_sample.cu: weight slices, the activation
+    stage [fchunk][ksmax], the f32 biases, then the staging mbarrier,
+    16-byte aligned."""
+    elems = sum(r * k for r, k in zip(rows, ks)) + fchunk * ksmax
+    return _ceil(_ceil(elems * wbytes, 16) * 16 + 4 * nbias, 16) * 16 + 16
+
+
+def plan(rnn: int, fc: int, n_classes: int, aux_d: int, n_mels: int, n_folds: int,
+         dtype: torch.dtype, sm_count: int) -> Plan:
+    """The launch plan of the kernel for these widths, ``n_folds`` folds,
+    weights of ``dtype`` and a card of ``sm_count`` SMs. Raises
+    ``ValueError`` when a block's slices and one 8-fold stage do not fit in
+    shared memory."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weights must be float32 or bfloat16, not {dtype}")
+    wb = 2 if dtype == torch.bfloat16 else 4
+    g = max(1, min(sm_count, max(rnn, fc, n_classes)))
+    nu, nv, nq = _ceil(rnn, g), _ceil(fc, g), _ceil(n_classes, g)
+    g = max(_ceil(rnn, nu), _ceil(fc, nv), _ceil(n_classes, nq))
+    k0 = 1 + n_mels + aux_d
+    rows = (nu, 3 * nu, 3 * nu, 3 * nu, 3 * nu, nv, nv, nq)
+    ks = [_ceil(k, 16) * 16 + 16 // wb
+          for k in (k0, rnn, rnn, rnn + aux_d, rnn, rnn + aux_d, fc + aux_d, fc)]
+    nbias = 9 * nu + 2 * nv + nq
+    fchunk = _ceil(max(n_folds, 1), 8) * 8
+    while fchunk >= 8 and _smem_bytes(rows, ks, max(ks), fchunk, nbias, wb) > SMEM_LIMIT:
+        fchunk -= 8
+    if fchunk < 8:
+        raise ValueError(
+            f"the sampler cannot place rnn={rnn}, fc={fc}, classes={n_classes} in "
+            f"{dtype} on {sm_count} SMs: a block's weight slices and one 8-fold stage need "
+            f"{_smem_bytes(rows, ks, max(ks), 8, nbias, wb)} B of shared memory, "
+            f"more than {SMEM_LIMIT}")
+    rs, fs = _ceil(rnn, 8) * 8, _ceil(fc, 8) * 8
+    f = n_folds
+    unit_blocks, fc_blocks, class_blocks = _ceil(rnn, nu), _ceil(fc, nv), _ceil(n_classes, nq)
+    return Plan(grid=g, nu=nu, nv=nv, nq=nq,
+                fchunk=fchunk,
+                smem=_smem_bytes(rows, ks, max(ks), fchunk, nbias, wb),
+                exchange_elems=2 * f * (5 * rs + 2 * fs), arg_elems=2 * f,
+                state_elems=g * f * (12 * nu + nq),
+                exchange_bytes=f * wb * (5 * rnn + 2 * fc) + 8 * f,
+                staged_bytes=f * wb * (unit_blocks * 4 * rnn + fc_blocks * (rnn + fc)
+                                       + class_blocks * fc) + g * 8 * f)
 
 
 def pack_wavernn_weights(model, dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
@@ -175,6 +267,46 @@ def _check(weights, mels, aux, n_classes):
         raise ValueError(f"aux width {aux.shape[2]} is not 4·aux_d")
 
 
+def _launch(lib: ctypes.CDLL, weights, mels, aux, seed, n_classes, greedy,
+            time_major) -> torch.Tensor:
+    """Plan, lay out the conditioning, allocate the workspaces and launch."""
+    dev = mels.device
+    wdt = weights["I_w"].dtype
+    f, t_len, m = mels.shape
+    aux_d = aux.shape[2] // 4
+    rnn, fc = weights["I_w"].shape[1], weights["fc1_w"].shape[1]
+    pl = plan(rnn, fc, n_classes, aux_d, m, f, wdt,
+              torch.cuda.get_device_properties(dev).multi_processor_count)
+    if time_major:
+        # (F, T, D) → (T, F, D) in the weight dtype: one copy, and the
+        # per-step rows of all folds are then adjacent
+        mels_t = mels.to(wdt).transpose(0, 1).contiguous()
+        aux_t = aux.to(wdt).transpose(0, 1).contiguous()
+    else:
+        mels_t = mels.float().contiguous()
+        aux_t = aux.float().contiguous()
+    labels = torch.empty((f, t_len), dtype=torch.int32, device=dev)
+    # workspaces: exchange rows (zeroed: step 0 reads h = 0 from them), the
+    # argmax keys and the grid-barrier counter (zeroed), block-private state
+    xch = torch.zeros(pl.exchange_elems, dtype=wdt, device=dev)
+    arg = torch.zeros(pl.arg_elems, dtype=torch.int64, device=dev)
+    state = torch.empty(pl.state_elems, dtype=torch.float32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * len(W_NAMES))(*(weights[k].data_ptr() for k in W_NAMES))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.wavernn_sample_launch(
+            mels_t.data_ptr(), aux_t.data_ptr(), ptrs, labels.data_ptr(), xch.data_ptr(),
+            arg.data_ptr(), state.data_ptr(), bar.data_ptr(),
+            f, t_len, m, aux_d, rnn, fc, n_classes, pl.grid, pl.nu, pl.nv, pl.nq, pl.fchunk,
+            pl.smem, int(wdt == torch.bfloat16), int(greedy), int(time_major),
+            int(seed) & (2**64 - 1), stream)
+    if err != 0:
+        raise RuntimeError(f"wavernn_sample kernel launch failed: CUDA error {err} "
+                           f"({lib.wavernn_sample_error_string(err).decode()})")
+    return labels
+
+
 def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: torch.Tensor,
                    seed: int, n_classes: int = 512, greedy: bool = False,
                    time_major: bool = True) -> torch.Tensor:
@@ -187,7 +319,10 @@ def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: to
     ``time_major`` streams the conditioning as one (T, F, D) copy in the
     weight dtype, as ``_kernel_v2`` does; ``time_major=False`` reads the
     (F, T, D) conditioning in place in f32, as ``_kernel`` does. Both round
-    it to the weight dtype before the products, so the labels are the same."""
+    it to the weight dtype before the products, so the labels are the same.
+    Raises ``ValueError`` before any launch for widths ``plan`` cannot
+    place, and ``RuntimeError`` with the CUDA error when the launch is
+    refused (there is no fallback)."""
     dev = mels.device
     if dev.type == "cpu":
         return wavernn_sample_plain(weights, mels, aux, seed, n_classes, greedy)
@@ -195,34 +330,43 @@ def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: to
         raise ValueError(f"wavernn_sample runs on cuda or cpu tensors, not {dev}")
     _check(weights, mels, aux, n_classes)
     from .build import load
-    lib = _bind(load("wavernn_sample"))
-    wdt = weights["I_w"].dtype
-    f, t_len, m = mels.shape
-    if time_major:
-        # (F, T, D) → (T, F, D) in the weight dtype: one copy, and the
-        # per-step rows of all folds are then adjacent
-        mels_t = mels.to(wdt).transpose(0, 1).contiguous()
-        aux_t = aux.to(wdt).transpose(0, 1).contiguous()
-    else:
-        mels_t = mels.float().contiguous()
-        aux_t = aux.float().contiguous()
-    labels = torch.empty((f, t_len), dtype=torch.int32, device=dev)
-    ptrs = (ctypes.c_void_p * len(W_NAMES))(*(weights[k].data_ptr() for k in W_NAMES))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wavernn_sample_launch(
-            mels_t.data_ptr(), aux_t.data_ptr(), ptrs, labels.data_ptr(),
-            f, t_len, m, aux.shape[2] // 4, weights["I_w"].shape[1],
-            weights["fc1_w"].shape[1], n_classes, int(wdt == torch.bfloat16),
-            int(greedy), int(time_major), int(seed) & (2**64 - 1), stream)
-    if err != 0:
-        raise RuntimeError(f"wavernn_sample kernel launch failed: CUDA error {err} "
-                           f"({lib.wavernn_sample_error_string(err).decode()})")
+    labels = _launch(_bind(load("wavernn_sample")), weights, mels, aux, seed, n_classes,
+                     greedy, time_major)
     if time_major:
         wavernn_sample.launches += 1
     else:
         wavernn_sample.launches_fold_major += 1
     return labels
+
+
+# the 13 phases of a step, in order, then 4 parts counted within them
+PHASES = ("x and I-dense", "hidden products", "barrier", "GRU1", "barrier", "GRU2", "barrier",
+          "fc1", "barrier", "fc2", "barrier", "fc3 and argmax", "barrier")
+PARTS = ("staging exchanged rows", "products", "GRU gates",
+         "conditioning columns (cp.async issue, or gather)")
+
+
+def phase_cycles(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: torch.Tensor,
+                 seed: int, n_classes: int = 512, greedy: bool = False,
+                 time_major: bool = True):
+    """One launch of the kernel built with its phase timers
+    (``-DWAVERNN_PROFILE``) on CUDA tensors → (``PHASES + PARTS``, SM cycles
+    of each per step, averaged over the blocks; the parts are counted again
+    within the phases). A measurement, not a path: it is not counted in the
+    launch counts."""
+    _check(weights, mels, aux, n_classes)
+    from .build import load
+    lib = _bind(load("wavernn_sample", ("WAVERNN_PROFILE",)))
+    out = (ctypes.c_ulonglong * (len(PHASES) + len(PARTS)))()
+    lib.wavernn_sample_phase_cycles(out)                 # zero the counters
+    _launch(lib, weights, mels, aux, seed, n_classes, greedy, time_major)
+    err = lib.wavernn_sample_phase_cycles(out)
+    if err != 0:
+        raise RuntimeError(f"reading the phase counters failed: CUDA error {err}")
+    pl = plan(weights["I_w"].shape[1], weights["fc1_w"].shape[1], n_classes,
+              aux.shape[2] // 4, mels.shape[2], mels.shape[0], weights["I_w"].dtype,
+              torch.cuda.get_device_properties(mels.device).multi_processor_count)
+    return PHASES + PARTS, [v / (pl.grid * mels.shape[1]) for v in out]
 
 
 wavernn_sample.launches = 0
@@ -233,8 +377,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.wavernn_sample_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, ctypes.c_ulonglong, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p] + [i] * 16 + [ctypes.c_ulonglong, p]
         fn.restype = i
         lib.wavernn_sample_error_string.argtypes = [i]
         lib.wavernn_sample_error_string.restype = ctypes.c_char_p
+        if hasattr(lib, "wavernn_sample_phase_cycles"):
+            lib.wavernn_sample_phase_cycles.argtypes = [p]
+            lib.wavernn_sample_phase_cycles.restype = i
     return lib

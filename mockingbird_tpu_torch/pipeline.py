@@ -4,7 +4,8 @@ Port of ``mockingbird_tpu/pipeline.py`` for the slice the port has:
 GE2E encoder → Tacotron → WaveRNN. ``tts_batch`` takes the JAX package's
 staged branch (the one it takes for a vocoder without ``vocode_device``) and
 returns int16 PCM. Weights come from ``.npz`` exports of the JAX package's
-param trees; a path that does not exist gives weights made from ``seed``.
+param trees; no path gives weights made from ``seed``, and a path that does
+not exist raises ``FileNotFoundError``.
 A vocoder object passed as ``vocoder`` is used as it is, in place of one
 loaded from ``vocoder_fpath``.
 """
@@ -39,7 +40,7 @@ class VoiceCloningPipeline:
         if synthesizer != "tacotron":
             raise NotImplementedError(f"synthesizer {synthesizer!r} is not ported yet")
         self.encoder = (SpeakerEncoderInference.from_checkpoint(encoder_fpath, device=self.device)
-                        if encoder_fpath and Path(encoder_fpath).exists()
+                        if encoder_fpath is not None
                         else SpeakerEncoderInference(seed=seed, device=self.device))
         self.synthesizer_kind = synthesizer
         self.synthesizer = Synthesizer(synthesizer_fpath, verbose=verbose, seed=seed,

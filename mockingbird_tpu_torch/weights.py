@@ -188,7 +188,9 @@ def flatten_tree(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def load_npz(path: Union[str, Path]) -> Dict:
-    """A framework-free export (``np.savez`` of ``flatten_tree``) → nested dict."""
+    """A framework-free export (``np.savez`` of ``flatten_tree``) → nested dict.
+    A path that does not exist raises ``FileNotFoundError`` (``np.load``'s):
+    weights made from a seed come only from passing no path."""
     tree: Dict = {}
     with np.load(path) as z:
         for key in z.files:

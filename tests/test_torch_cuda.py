@@ -14,8 +14,8 @@ import torch
 from mockingbird_tpu_torch.models.vocoder import WaveRNN, wavernn_config
 from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
                                                        maximum_path_plain)
-from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, wavernn_sample,
-                                                      wavernn_sample_plain)
+from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, plan,
+                                                      wavernn_sample, wavernn_sample_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -25,10 +25,15 @@ SMALL = dict(rnn_dims=32, fc_dims=32, compute_dims=16, res_out_dims=16, res_bloc
 
 @pytest.fixture
 def card():
+    """The card, with TF32 off around the test (the plain versions are the
+    reference: full f32 in matmuls and cuDNN), restored after it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    matmul = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=False):
+        yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 def _case(card, cfg, f, t, seed=0):
@@ -129,6 +134,83 @@ def test_fold_major_layout_matches_plain(card, weights):
         assert torch.equal(k, wavernn_sample(w, mels, aux, 5, greedy=greedy))
 
 
+@pytest.mark.parametrize("t_len", [1, 96])
+@pytest.mark.parametrize("n_folds", [1, 5, 9, 72])
+@pytest.mark.parametrize("weights", ["f32", "bf16"])
+@pytest.mark.parametrize("cfg", [SMALL, {}], ids=["small", "full"])
+def test_kernel_matches_plain_across_shapes(card, cfg, weights, n_folds, t_len):
+    """Fold counts that fill no 8-fold tile (1, 5, 9) and one that spans
+    several (72), a single step and 96, at both widths (SMALL leaves most
+    blocks without a GRU unit or fc column), in f32 and bf16, greedy and
+    sampled, in both layouts: held against the plain version by the gap
+    rule, and the two layouts equal."""
+    model, mels, aux = _case(card, cfg, n_folds, t_len, seed=n_folds + t_len)
+    w = pack_wavernn_weights(model, torch.float32 if weights == "f32" else torch.bfloat16)
+    bound = 1e-3 if weights == "f32" else 5e-2
+    for greedy in (True, False):
+        p, gaps = wavernn_sample_plain(w, mels, aux, 11, greedy=greedy, return_gaps=True)
+        k = wavernn_sample(w, mels, aux, 11, greedy=greedy)
+        assert k.shape == (n_folds, t_len) and k.dtype == torch.int32
+        _hold(k, p, gaps, bound)
+        assert torch.equal(k, wavernn_sample(w, mels, aux, 11, greedy=greedy, time_major=False))
+
+
+@pytest.mark.parametrize("rnn", [130, 131])
+def test_kernel_at_odd_widths(card, rnn):
+    """rnn 130 and 131 give grids of 130 and 131 blocks (one unit each), so
+    the launch takes clusters of 2 or none at all, and widths that are not
+    a multiple of 8 take the gathered conditioning and the exchange rows'
+    gathered tails: held against the plain version by the gap rule, both
+    layouts equal."""
+    cfg = dict(SMALL, rnn_dims=rnn, fc_dims=rnn - 90)
+    model, mels, aux = _case(card, cfg, 9, 48, seed=rnn)
+    for dtype, bound in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        w = pack_wavernn_weights(model, dtype)
+        pl = plan(rnn, rnn - 90, 512, 4, 80, 9, dtype,
+                  torch.cuda.get_device_properties(card).multi_processor_count)
+        assert pl.grid == rnn
+        for greedy in (True, False):
+            p, gaps = wavernn_sample_plain(w, mels, aux, 4, greedy=greedy, return_gaps=True)
+            k = wavernn_sample(w, mels, aux, 4, greedy=greedy)
+            _hold(k, p, gaps, bound)
+            assert torch.equal(k, wavernn_sample(w, mels, aux, 4, greedy=greedy,
+                                                 time_major=False))
+
+
+def test_kernel_stages_folds_in_chunks(card):
+    """200 folds exceed one shared-memory stage of activations (144 folds in
+    bf16, 40 in f32), so every layer is staged in chunks: held against the
+    plain version by the gap rule."""
+    model, mels, aux = _case(card, {}, 200, 24, seed=4)
+    for dtype, bound in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+        w = pack_wavernn_weights(model, dtype)
+        pl = plan(512, 512, 512, 32, 80, 200, dtype,
+                  torch.cuda.get_device_properties(card).multi_processor_count)
+        assert pl.fchunk < 200
+        k = wavernn_sample(w, mels, aux, 2)
+        p, gaps = wavernn_sample_plain(w, mels, aux, 2, return_gaps=True)
+        _hold(k, p, gaps, bound)
+
+
+def test_kernel_refuses_a_width_it_cannot_place(card):
+    """rnn = fc = 2048 in bf16 puts 16 GRU units (48 rows of 2048) of each
+    of four matrices on a block, beyond shared memory: the plan raises
+    ValueError before any launch."""
+    rnn, fc, a = 2048, 2048, 32
+    shapes = {"I_w": (1 + 80 + a, rnn), "I_b": (rnn,), "g1_wi": (rnn, 3 * rnn),
+              "g1_bi": (3 * rnn,), "g1_wh": (rnn, 3 * rnn), "g1_bn": (rnn,),
+              "g2_wi": (rnn + a, 3 * rnn), "g2_bi": (3 * rnn,), "g2_wh": (rnn, 3 * rnn),
+              "g2_bn": (rnn,), "fc1_w": (rnn + a, fc), "fc1_b": (fc,), "fc2_w": (fc + a, fc),
+              "fc2_b": (fc,), "fc3_w": (fc, 512), "fc3_b": (512,)}
+    w = {k: torch.zeros(v, dtype=torch.bfloat16, device=card) for k, v in shapes.items()}
+    mels = torch.zeros(4, 8, 80, device=card)
+    aux = torch.zeros(4, 8, 4 * a, device=card)
+    before = wavernn_sample.launches
+    with pytest.raises(ValueError, match="cannot place"):
+        wavernn_sample(w, mels, aux, 0)
+    assert wavernn_sample.launches == before
+
+
 def _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=0, ties=False):
     rng = np.random.RandomState(seed)
     nc = rng.randn(b, t_y, t_x).astype(np.float32)
@@ -138,7 +220,8 @@ def _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=0, ties=False):
             torch.as_tensor(t_xs, dtype=torch.int32, device=card))
 
 
-@pytest.mark.parametrize("case", ["ragged", "ties", "tx1", "square", "long"])
+@pytest.mark.parametrize("case", ["ragged", "ties", "tx1", "square", "long",
+                                  "tx31", "tx32", "tx33", "tx1024"])
 def test_mas_kernel_exact(card, case):
     """Every element of the kernel's path equals the plain version's."""
     rng = np.random.RandomState(1)
@@ -156,6 +239,15 @@ def test_mas_kernel_exact(card, case):
         t_y, t_x = 1000, 12
         t_xs = rng.randint(1, t_x + 1, b)
         t_ys = rng.randint(900, t_y + 1, b)
+    elif case.startswith("tx") and case != "tx1":
+        # lane and warp edges: 31, 32 and 33 columns, and one full warp of
+        # 32 columns per lane (ties, so the strict < is held at the edges)
+        t_x = int(case[2:])
+        t_y = 1200 if t_x == 1024 else 400
+        t_xs = np.maximum(t_x - rng.randint(0, 3, b), 1)
+        t_xs[0] = t_x
+        t_ys = np.maximum(rng.randint(t_y // 2, t_y + 1, b), t_xs)
+        ties = True
     nc, tys, txs = _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=3, ties=ties)
     k = maximum_path_cuda(nc, tys, txs)
     p = maximum_path_plain(nc, tys, txs)

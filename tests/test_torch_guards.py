@@ -160,3 +160,72 @@ def test_sampler_refuses_other_devices():
     t = torch.zeros(1, 1, 80, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         wavernn_sample({}, t, t, 0)
+
+
+@pytest.mark.parametrize("entry", ["encoder", "synthesizer", "wavernn"])
+def test_missing_weights_path_raises(entry, tmp_path):
+    """A weights path that does not exist raises ``FileNotFoundError`` in
+    every constructor that takes one (a typo must not give seeded noise);
+    weights made from a seed come only from passing no path."""
+    from mockingbird_tpu_torch.models.tacotron import Synthesizer
+    from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder
+    from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
+    missing = tmp_path / "missing.npz"
+    make = {"encoder": lambda p: VoiceCloningPipeline(encoder_fpath=p, vocoder=object(),
+                                                       verbose=False, device="cpu"),
+            "synthesizer": lambda p: Synthesizer(p, verbose=False, device="cpu"),
+            "wavernn": lambda p: WaveRnnVocoder(p, verbose=False, device="cpu")}[entry]
+    with pytest.raises(FileNotFoundError, match="missing.npz"):
+        make(missing)
+    with pytest.raises(FileNotFoundError):
+        make(str(missing))
+
+
+def test_importing_the_port_leaves_tf32_alone():
+    """The port sets no global precision flag: a caller gets PyTorch's
+    defaults, or whatever it set itself, after importing every module.
+    Both flags start from the opposite of their defaults here, so a module
+    that set either to a fixed value would show."""
+    script = f"""
+import importlib, torch
+torch.backends.cuda.matmul.allow_tf32 = True
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("medium")
+for name in {_modules()!r}:
+    importlib.import_module(name)
+state = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.get_float32_matmul_precision())
+assert state == (True, False, "medium"), state
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"
+
+
+def test_smoke_turns_tf32_off_only_around_the_holds():
+    """``chip_smoke.py`` times every path under PyTorch's defaults (what a
+    caller of the port gets) and turns TF32 off only inside ``full_f32``,
+    around the holds against plain versions and the parity checks, which
+    restores both flags; no other statement of the script sets them."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        with smoke.full_f32():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    setters = [fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+               for node in ast.walk(fn) if isinstance(node, ast.Assign)
+               for tgt in node.targets
+               if isinstance(tgt, ast.Attribute) and tgt.attr == "allow_tf32"]
+    assert set(setters) == {"full_f32"}, setters

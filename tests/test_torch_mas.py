@@ -63,4 +63,4 @@ def test_kernel_launcher_refuses_cpu_and_other_devices():
     meta = torch.zeros(1, 4, 3, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         maximum_path(meta, meta)
-    assert smem_bytes(1000, 160) == 4 * (2 * 160 + 1000 * 5)
+    assert smem_bytes(1000, 160) == 32 * 1000

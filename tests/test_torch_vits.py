@@ -395,6 +395,51 @@ def test_reconstruct_and_synthesizer(models):
     assert out.dtype == np.float32 and np.isfinite(out).all() and len(out) % 16 == 0
 
 
+def _half(tree):
+    return jax.tree.map(lambda a: a.astype(jnp.bfloat16) if a.dtype == jnp.float32 else a,
+                        tree)
+
+
+def test_half_synthesizer_matches_jax_half(models):
+    """``VitsSynthesizer(half=True)`` against the JAX package's ``half=True``
+    (f32 parameters cast to bf16, the emotion vectors and the spectrogram
+    handed in as f32, flax's dtype promotion): ``synthesize_device`` with
+    the noise scales at 0 (so neither side's random draws matter) and
+    ``reconstruct``. Both sides compute in f32 with bf16-rounded weights
+    wherever a float32 input or mask meets a layer, so they agree to f32
+    rounding: 1e-4, the f32 tests' tolerance. A bf16 input where JAX has an
+    f32 one rounds it to 8 bits of mantissa and misses that by orders of
+    magnitude."""
+    from mockingbird_tpu_torch.models.vits import VitsSynthesizer
+    jmod, v, _ = models
+    syn = VitsSynthesizer(cfg=SMALL, verbose=False, device="cpu", half=True,
+                          variables=to_numpy(v["params"]))
+    vh = _half(v)
+    texts = ["ni3 hao3 shi4 jie4", "hello there, how are you today my friend"]
+    x, xl = syn._texts(texts)
+    sids = np.array([1, 3], np.int32)
+    emos = rnd(2, 8, seed=5, scale=2.0)
+    o_ref, yl_ref = jax.jit(lambda v, *a: jmod.apply(
+        v, *a, noise_scale=0.0, length_scale=1.0, noise_scale_w=0.0, max_len=40,
+        key=jax.random.PRNGKey(0), method=jmodel.Vits.infer,
+        rngs={"dropout": jax.random.PRNGKey(1)}))(
+        vh, x.astype(np.int32), xl.astype(np.int32), sids, emos)[::3]
+    o, yl = syn.synthesize_device(texts, sids=sids, emos=emos, noise_scale=0.0,
+                                  noise_scale_w=0.0, max_frames=40)
+    np.testing.assert_array_equal(yl.numpy(), np.asarray(yl_ref))
+    close(o, np.asarray(o_ref, np.float32))
+
+    wav = (0.4 * np.sin(2 * np.pi * 220 * np.arange(4000) / 16000)).astype(np.float32)
+    spec = np.asarray(spectrogram_vits(jnp.asarray(wav), 128, 16, 128))
+    y = np.zeros((1, 256, 65), np.float32)
+    y[0, :len(spec)] = spec
+    ref = jax.jit(lambda v, *a: jmod.apply(v, *a, key=jax.random.PRNGKey(0),
+                                           method=jmodel.Vits.reconstruct))(
+        vh, y, np.array([len(spec)], np.int32), np.array([0], np.int32))
+    got = syn.reconstruct(wav)
+    close(torch.from_numpy(got), np.asarray(ref, np.float32)[0, :len(spec) * 16])
+
+
 def test_trained_export_carries_across():
     """The committed VITS export loads strictly (no missing or extra leaf)
     into the full-width port, and the full-width ``reconstruct`` of a short
