@@ -5,7 +5,7 @@
 Phases, each printing its elapsed seconds:
   1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
   2. the build of every CUDA kernel with ``nvcc`` (sm_90a), one ``nvcc`` per
-     source and one more for K1 with its phase timers, all started together;
+     source, all started together;
   3. the TTS path at the full width of the committed configurations, with
      weights made from a seed: ``VoiceCloningPipeline.tts_batch`` for three
      texts (English, Mandarin hanzi, tone-numbered pinyin) cloned from
@@ -25,10 +25,10 @@ Phases, each printing its elapsed seconds:
      the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
      (its fold-major layout) on the TTS path's own inputs, then timed at
      one utterance's folds and at 4 folds per SM, with the launch plan, the
-     cuDNN GRU yardstick as built and after ``flatten_parameters()``, and
-     K1's step by phase; K2 (alignment search, exactly equal) on the
-     training step's own inputs and on ragged and tied cases, its device
-     time from a profiler trace;
+     cuDNN GRU yardstick as built and after ``flatten_parameters()``; K2
+     (alignment search, exactly equal) on the training step's own inputs
+     and on ragged, tied and band-less cases, timed per call with CUDA
+     events, the kernel's own device time from a profiler trace beside it;
   7. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -67,8 +67,8 @@ from mockingbird_tpu_torch.models.vocoder import wavernn as wavernn_module
 from mockingbird_tpu_torch.ops import build
 from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
                                                        maximum_path_plain)
-from mockingbird_tpu_torch.ops.wavernn_sample import (PHASES, pack_wavernn_weights, phase_cycles,
-                                                      plan, wavernn_sample, wavernn_sample_plain)
+from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, plan, resident_blocks,
+                                                      wavernn_sample, wavernn_sample_plain)
 from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
 from mockingbird_tpu_torch.text import text_to_sequence
 from mockingbird_tpu_torch.train.checkpoint import CheckpointManager
@@ -530,6 +530,11 @@ def mas_cases(dev, b=16, t_y=1000, t_x=160):
     yield "T_y = T_x", case(rng.randn(b, t_x, t_x), sq, sq)
     yield "T_y >> T_x", case(rng.randn(b, t_y, 12), rng.randint(t_y - t_y // 10, t_y + 1, b),
                              rng.randint(1, 13, b))
+    # no band where t_y < t_x: every cell -1e9; neg_cent ~1e3 survives an
+    # add to -1e9, so a cell wrongly taken in would change the path
+    short = rng.randint(1, t_x // 2, b)
+    yield "T_y < T_x", case(1000 * rng.randn(b, t_x // 2, t_x), short,
+                            np.minimum(short + rng.randint(0, t_x // 2, b), t_x))
 
 
 def phase_k2(dev, train_inputs, launches):
@@ -552,12 +557,11 @@ def phase_k2(dev, train_inputs, launches):
         nc32 = (nc_train.float() * mask_train).contiguous()
         t_ys = mask_train[:, :, 0].float().sum(1).int()
         t_xs = mask_train[:, 0, :].float().sum(1).int()
-        call_ms = cuda_ms(lambda: maximum_path_cuda(nc32, t_ys, t_xs), reps=20)
+        # the whole function per call (the path's zero fill and the kernel,
+        # the work bound_ms counts); the kernel's own device time beside it
+        ms = cuda_ms(lambda: maximum_path_cuda(nc32, t_ys, t_xs), reps=20)
         kernel_ms = device_ms(lambda: maximum_path_cuda(nc32, t_ys, t_xs),
                               "maximum_path_kernel")
-        # the kernel's own device time where the trace has it; a call also
-        # launches the path's zero fill and pays the host's launch costs
-        ms = kernel_ms if kernel_ms is not None else call_ms
         plain_ms = cuda_ms(lambda: maximum_path_plain(nc32, t_ys, t_xs))
         b, t_y, t_x = nc32.shape
         cells = int((t_ys.long() * t_xs.long()).sum())
@@ -565,23 +569,27 @@ def phase_k2(dev, train_inputs, launches):
         flops = 3.0 * cells
         t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
         bound_ms = max(t_ops, t_bytes)
-        print(f"  training shape {tuple(nc32.shape)}: kernel {ms:.4f} ms on the device "
-              f"({'profiler' if kernel_ms is not None else 'not in the trace: CUDA events'}), "
-              f"{call_ms:.4f} ms per call by CUDA events, plain {plain_ms:.3f} "
-              f"ms, bound {bound_ms:.5f} ms ({n_bytes} B: the {cells} cells inside the "
-              f"lengths read, the path written; {flops:.3g} FLOP); the rows are a chain of "
-              f"{int(t_ys.max())} dependent warp-wide steps, {ms / int(t_ys.max()) * 1e3:.3f} "
-              f"us each; no single PyTorch call computes MAS")
+        kernel_s = (f"{kernel_ms:.4f} ms" if kernel_ms is not None
+                    else "not measured (the profiler trace holds no maximum_path_kernel)")
+        print(f"  training shape {tuple(nc32.shape)}: {ms:.4f} ms per call by CUDA events "
+              f"(zero fill and kernel), the kernel alone {kernel_s} of device time "
+              f"(profiler), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({n_bytes} B: "
+              f"the {cells} cells inside the lengths read, the path written; {flops:.3g} "
+              f"FLOP); the rows are a chain of {int(t_ys.max())} dependent warp-wide steps, "
+              f"{ms / int(t_ys.max()) * 1e3:.3f} us each per call; no single PyTorch call "
+              f"computes MAS")
         # T_x = 1 at the same T_y: a trivial forward and the same T_y-step
         # backtrack, an upper bound of the backtrack's share
         tx1 = torch.full((b,), int(t_ys.max()), dtype=torch.int32, device=dev)
         nc1 = torch.randn(b, t_y, 1, device=dev)
         one = torch.ones_like(tx1)
         ms1 = device_ms(lambda: maximum_path_cuda(nc1, tx1, one), "maximum_path_kernel")
-        if ms1 is None:
-            ms1 = cuda_ms(lambda: maximum_path_cuda(nc1, tx1, one), reps=20)
-        print(f"  T_x = 1, T_y = {t_y}: {ms1:.4f} ms, at most {100 * ms1 / ms:.0f}% of the "
-              f"training shape's time is the one-thread backtrack")
+        if ms1 is not None and kernel_ms is not None:
+            print(f"  T_x = 1, T_y = {t_y}: kernel {ms1:.4f} ms of device time, so at most "
+                  f"{100 * ms1 / kernel_ms:.0f}% of the kernel's time at the training shape "
+                  f"is the one-thread backtrack")
+        else:
+            print("  the backtrack's share: not measured (no kernel in the profiler trace)")
     return {"name": "maximum_path", "route": "cuda",
             "source": "mockingbird_tpu_torch/ops/csrc/monotonic_align.cu",
             "replaces": "mockingbird_tpu/ops/monotonic_align_pallas.py:27",
@@ -603,12 +611,14 @@ def phase_k1(dev, pipe, captured, launches):
         aux_d = aux.shape[2] // 4
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for dtype in (torch.bfloat16, torch.float32):
-            pl = plan(rnn, fc, n_classes, aux_d, mels.shape[2], f, dtype, sms)
-            print(f"  plan ({dtype}, F={f}, {sms} SMs): grid {pl.grid} blocks of {pl.nu} units, "
-                  f"{pl.nv} fc columns, {pl.nq} classes; {pl.smem} B of shared memory per "
-                  f"block; {pl.fchunk} folds per stage; exchanged per step {pl.exchange_bytes} B "
-                  f"written, {pl.staged_bytes} B staged into all blocks (L2 serves each row "
-                  f"once per cluster, 4 blocks where the card keeps the grid resident so)")
+            resident = resident_blocks(dev, dtype)
+            pl = plan(rnn, fc, n_classes, aux_d, mels.shape[2], f, dtype, resident)
+            print(f"  plan ({dtype}, F={f}, {sms} SMs, {resident} blocks resident in clusters "
+                  f"of 4): grid {pl.grid} blocks of {pl.nu} units, {pl.nv} fc columns, "
+                  f"{pl.nq} classes; {pl.smem} B of shared memory per block; {pl.fchunk} "
+                  f"folds per stage; exchanged per step {pl.exchange_bytes} B written, "
+                  f"{pl.staged_bytes} B staged into all blocks (L2 serves each row once per "
+                  f"cluster of 4)")
         # the plain version draws the kernel's own Philox noise, so sampled
         # labels are held step by step as greedy ones are; the last mode is
         # the TTS path's own (bf16 weights, sampled, the path's seed). K1b
@@ -657,21 +667,12 @@ def phase_k1(dev, pipe, captured, launches):
             fm = cuda_ms(lambda: wavernn_sample(w_bf16, m_x, a_x, seed, n_classes,
                                                 time_major=False), reps=3)
             times[fx] = (tm, fm)
-            pl = plan(rnn, fc, n_classes, aux_d, mels.shape[2], fx, torch.bfloat16, sms)
+            pl = plan(rnn, fc, n_classes, aux_d, mels.shape[2], fx, torch.bfloat16,
+                      resident_blocks(dev, torch.bfloat16))
             print(f"  F={fx}: K1 {tm:.3f} ms ({tm / t * 1e3:.2f} us per step), K1b {fm:.3f} ms "
                   f"({fm / t * 1e3:.2f} us per step); {pl.fchunk} folds per stage, "
                   f"{pl.staged_bytes / 2**20:.1f} MiB staged into all blocks per step")
         ms, ms_b = times[f]
-        # where a step's time goes: the kernel built again with its phase
-        # timers (SM cycles per step, averaged over blocks), shares of the
-        # 13 phases, and the parts counted within them
-        names, cycles = phase_cycles(w_bf16, mels, aux, seed, n_classes)
-        step_cycles = sum(cycles[:len(PHASES)])
-        us_step = ms / t * 1e3
-        print(f"  K1 at F={f}, by phase: {step_cycles:.0f} SM cycles per step")
-        for name, c in zip(names, cycles):
-            print(f"    {name}: {c:.0f} cycles, {100 * c / step_cycles:.1f}% "
-                  f"(~{us_step * c / step_cycles:.2f} us of {us_step:.2f})")
         plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))
         # yardstick: one cuDNN GRU call over the same T x F with the sampler's
         # hidden width, teacher-forced (no sampling, no feedback), as built
@@ -727,14 +728,13 @@ def main() -> int:
               f"around the holds against plain versions and the parity checks")
 
     with Phase("build"):
-        # every source, and K1 again with its phase timers, all at once
-        builds = [(name, ()) for name in KERNELS] + [("wavernn_sample", ("WAVERNN_PROFILE",))]
-        with ThreadPoolExecutor(len(builds)) as pool:
-            reports = list(pool.map(lambda b: build.build(*b), builds))
-        for (name, defines), report in zip(builds, reports):
+        # every source at once, one nvcc each
+        with ThreadPoolExecutor(len(KERNELS)) as pool:
+            reports = list(pool.map(build.build, KERNELS))
+        for name, report in zip(KERNELS, reports):
             for line in report.splitlines():
                 if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}{''.join(' -D' + d for d in defines)}:", line.strip())
+                    print(f"  ptxas {name}:", line.strip())
 
     pipe, captured, tts_launches = phase_tts(dev)
     phase_vits_serve(dev)

@@ -5,8 +5,7 @@ Each source has a plain C interface and includes no PyTorch header, so
 ``nvcc`` compiles it in seconds. The shared libraries go to ``_build/``
 beside this file (listed in ``.gitignore``), named by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. A build may add preprocessor ``defines`` (a variant with
-instrumentation compiled in), which get a library of their own.
+loaded as it is.
 """
 from __future__ import annotations
 
@@ -16,14 +15,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -34,28 +33,22 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def _target(name: str, defines: Sequence[str] = ()) -> Path:
+def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build(name: str, defines: Sequence[str] = ()) -> str:
-    """Compile ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``)
-    unless it has a current build. Returns the compiler's output (the
-    ``-Xptxas -v`` register and shared-memory report, empty when nothing was
-    built); raises if the build fails."""
-    out = _target(name, defines)
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless it has a current build. Returns the
+    compiler's output (the ``-Xptxas -v`` register and shared-memory report,
+    empty when nothing was built); raises if the build fails."""
+    out = _target(name)
     if out.exists():
         return ""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *_flags(defines), "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
@@ -63,10 +56,9 @@ def build(name: str, defines: Sequence[str] = ()) -> str:
     return proc.stdout
 
 
-def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    key = (name, tuple(defines))
-    if key not in _loaded:
-        build(name, defines)
-        _loaded[key] = ctypes.CDLL(str(_target(name, defines)))
-    return _loaded[key]
+    if name not in _loaded:
+        build(name)
+        _loaded[name] = ctypes.CDLL(str(_target(name)))
+    return _loaded[name]

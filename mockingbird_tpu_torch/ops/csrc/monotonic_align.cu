@@ -87,14 +87,15 @@ maximum_path_kernel(const float* __restrict__ neg_cent, const int32_t* __restric
   {
     const int x0 = lane * C;
     // the band t_x + y - t_y <= x <= min(y, t_x - 1) as one unsigned compare,
-    // (y - lo[j]) <= t_y - t_x, with lo[j] out of reach past t_x (or when
-    // t_y < t_x, which leaves no band)
-    const int span = t_y - t_x;
+    // (y - lo[j]) <= span with span = t_y - t_x. Past t_x, and everywhere
+    // when t_y < t_x (which leaves no band), lo[j] = 2^30: y - 2^30 as
+    // unsigned is at least 2^31, above any span, so no cell is in
+    const unsigned span = t_y >= t_x ? (unsigned)(t_y - t_x) : 0u;
     int lo[C];
     bool in_row[C];  // the column exists in neg_cent
 #pragma unroll
     for (int j = 0; j < C; ++j) {
-      lo[j] = (x0 + j < t_x && span >= 0) ? x0 + j : (1 << 30);
+      lo[j] = (x0 + j < t_x && t_y >= t_x) ? x0 + j : (1 << 30);
       in_row[j] = x0 + j < TX;
     }
     float ahead[kAhead][C];  // rows y .. y + kAhead - 1 of this lane's columns
@@ -130,7 +131,7 @@ maximum_path_kernel(const float* __restrict__ neg_cent, const int32_t* __restric
           float best = fmaxf(x == y ? kNeg : p, left);
           if (y == 0) best = x == 0 ? 0.0f : kNeg;
           const float v = __fadd_rn(ahead[d][j], best);  // the row is 0 past TX
-          prev[j] = (unsigned)(y - lo[j]) <= (unsigned)span ? v : kNeg;
+          prev[j] = (unsigned)(y - lo[j]) <= span ? v : kNeg;
         }
         bits[(size_t)y * 32 + lane] = (word_t)word;
         load(ahead[d]);

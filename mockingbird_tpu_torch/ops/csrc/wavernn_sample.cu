@@ -17,10 +17,11 @@
 // 70 us a step at ~110 GB/s): the weights have to stay put instead.
 //
 // What the design does about it:
-//   * one cooperative launch (cudaLaunchKernelEx, cooperative) of G <=
-//     SM-count blocks, one per SM, all resident, looping over all T steps,
-//     in clusters of 4 blocks (2, or none, if the card cannot keep the grid
-//     resident so);
+//   * one cooperative launch (cudaLaunchKernelEx, cooperative) of G blocks
+//     in clusters of 4, one per SM, all resident, looping over all T steps;
+//     G is a multiple of 4 no larger than what the card keeps resident in
+//     clusters of 4 (`wavernn_sample_resident_blocks`), 128 at full width,
+//     and the launcher refuses any other;
 //   * each block owns a slice of output columns of every layer and loads
 //     that slice of every weight matrix into shared memory once, before the
 //     step loop (64 KB of bf16 at full width on 128 blocks; 128 KB in f32):
@@ -34,8 +35,7 @@
 //     input rows it needs into shared memory, F folds in chunks that fit:
 //     each block of a cluster fetches every 4th row once by a bulk copy
 //     (which reads L2, never the SMs' non-coherent L1) multicast into all
-//     the cluster's blocks, an mbarrier in each counting the bytes in
-//     (without a cluster, each block reads every row by cp.async.cg); the
+//     the cluster's blocks, an mbarrier in each counting the bytes in; the
 //     conditioning columns (mel, a1..a4) come from the conditioning input;
 //   * the hidden products g1_wh.h1[t-1] and g2_wh.h2[t-1] depend only on the
 //     previous step and run in the same phase as the I-dense;
@@ -55,7 +55,7 @@
 // blocks) plus the staging of the exchanged rows (about 0.5 MB into each
 // block at F = 72, bf16, 63 MiB over all blocks, of which L2 serves a
 // quarter with clusters of 4), about 15 us; the products' latency comes on
-// top. PERF.md records the measured split by phase (`phase_cycles`).
+// top. PERF.md records the measured split by phase.
 //
 // Numerics follow the Pallas kernel: activations are rounded to the weight
 // type before each product and accumulated in f32; sampling draws 32 random
@@ -73,6 +73,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 4;  // blocks per cluster: they share the staging of exchanged rows
 constexpr int kSmemLimit = 232448;
 
 __host__ __device__ constexpr int ceil_to(int v, int m) { return (v + m - 1) / m * m; }
@@ -313,28 +314,6 @@ __device__ __forceinline__ void tile(const float* Ws, int nrows, int wks, const 
   acc[2] = r1 ? c2 : 0.f; acc[3] = r1 ? c3 : 0.f;
 }
 
-// Phase timers, compiled in only with -DWAVERNN_PROFILE: thread 0 of each
-// block adds the clock64() cycles since the last mark to phase i's counter,
-// so a launch leaves the cycles per phase summed over blocks and steps.
-#ifdef WAVERNN_PROFILE
-constexpr int kPhases = 17;  // 13 phases of a step, then 4 parts within them
-__device__ unsigned long long g_phase_cycles[kPhases];
-#define PHASE(i, mark)                                                     \
-  do {                                                                     \
-    if (threadIdx.x == 0) {                                                \
-      const long long now_ = clock64();                                    \
-      atomicAdd(&g_phase_cycles[i], (unsigned long long)(now_ - (mark)));  \
-      (mark) = now_;                                                       \
-    }                                                                      \
-  } while (0)
-#define PART(i, start) PHASE(13 + (i), start)
-#define MARK(v) long long v = clock64()
-#else
-#define PHASE(i, mark)
-#define PART(i, start)
-#define MARK(v)
-#endif
-
 template <typename W, typename Cd>
 struct Params {
   const Cd* mels;     // (T, F, M) when time_major, else (F, T, M)
@@ -347,7 +326,6 @@ struct Params {
   uint32_t* bar;      // grid-barrier counter, zeroed by the caller
   Dims d;
   int greedy, time_major;
-  int csize;          // blocks per cluster (1, 2 or 4)
   uint32_t seed_lo, seed_hi;
 };
 
@@ -371,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
   // A cluster stages its operands together (below), so its blocks run the
   // same layers: a layer runs in a block when any block of its cluster owns
   // some of it (a block that owns none computes rows it never writes).
-  const int csize = p.csize, rank = blk % csize, first = blk - rank;
+  const int rank = blk % kCluster, first = blk - rank;
   const bool use_u = first * nu < R, use_v = first * nv < FC, use_q = first * nq < C;
   uint64_t* mbar = reinterpret_cast<uint64_t*>(smem + L.mbar_off);
   uint32_t mphase = 0;
@@ -481,7 +459,6 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
   // X[f][col, col + n) <- the mel row (part < 0) or aux part `part` of
   // step t, fold f0 + f
   auto stage_cond = [&](int col, int part, int t, int f0, int nf) {
-    MARK(start);
     const Cd* base = part < 0 ? p.mels : p.aux;
     const int rowlen = part < 0 ? M : 4 * A, n = part < 0 ? M : A;
     const int off = part < 0 ? 0 : part * A;
@@ -498,7 +475,6 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
       gather(nf * n, [&](int e) { return to_f(src(e / n)[e % n]); },
              [&](int e, float v) { X[(size_t)(e / n) * ksm + col + e % n] = from_f<W>(v); });
     }
-    PART(3, start);
   };
   // X[f][from, to) <- 0 (the operand's padding to a multiple of 16)
   auto stage_zero = [&](int from, int to, int nf) {
@@ -506,34 +482,24 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
     for (int e = tid; e < nf * n; e += kThreads)
       X[(size_t)(e / n) * ksm + from + e % n] = from_f<W>(0.f);
   };
-  // X[f][0, width) <- exchange rows src[f0 + f][.], read through L2
-  // X[f][0, width) <- exchange rows src[f0 + f][.], read through L2. In a
-  // cluster of csize blocks, each block fetches every csize-th row once, by
-  // a bulk copy multicast into the shared memory of all the cluster's
-  // blocks, so L2 serves each row once per cluster instead of once per
-  // block; the cluster first meets, so that no block's stage is written
-  // while it still reads it, and each block's mbarrier counts the bytes in.
+  // X[f][0, width) <- exchange rows src[f0 + f][.], read through L2. Each
+  // block of the cluster fetches every kCluster-th row once, by a bulk copy
+  // multicast into the shared memory of all the cluster's blocks, so L2
+  // serves each row once per cluster instead of once per block; the cluster
+  // first meets, so that no block's stage is written while it still reads
+  // it, and each block's mbarrier counts the bytes in. A row's tail past
+  // its last whole 16 bytes is gathered by each block (rows are 16-byte
+  // aligned: their strides are multiples of 8 elements).
   auto stage_rows = [&](const W* src, int stride, int width, int f0, int nf) {
-    const int vec = width / kVec, head = vec * kVec, rest = width - head;
-    if (csize > 1 && (stride * (int)sizeof(W)) % 16 == 0) {
-      const uint32_t row_bytes = head * sizeof(W);
-      cluster_sync();
-      if (tid == 0) mbar_expect(mbar, nf * row_bytes);
-      if (row_bytes) {
-        asm volatile("fence.proxy.async.global;\n" ::: "memory");
-        for (int f = rank + tid * csize; f < nf; f += kThreads * csize)
-          bulk_multicast(X + (size_t)f * ksm, src + (size_t)(f0 + f) * stride, row_bytes, mbar,
-                         (uint16_t)((1u << csize) - 1));
-      }
-    } else {
-      // every block reads the same rows: each starts at its own offset, so
-      // that the blocks' requests spread over the L2 slices
-      const int n = nf * vec, rot = (int)((long long)blk * n / G);
-      for (int i = tid; i < n; i += kThreads) {
-        const int e = i + rot < n ? i + rot : i + rot - n;
-        const int f = e / vec, c = e % vec;
-        cp_async16(X + (size_t)f * ksm + c * kVec, src + (size_t)(f0 + f) * stride + c * kVec);
-      }
+    const int head = width / kVec * kVec, rest = width - head;
+    const uint32_t row_bytes = head * sizeof(W);
+    cluster_sync();
+    if (tid == 0) mbar_expect(mbar, nf * row_bytes);
+    if (row_bytes) {
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      for (int f = rank + tid * kCluster; f < nf; f += kThreads * kCluster)
+        bulk_multicast(X + (size_t)f * ksm, src + (size_t)(f0 + f) * stride, row_bytes, mbar,
+                       (uint16_t)((1u << kCluster) - 1));
     }
     if (rest)
       gather(nf * rest,
@@ -542,10 +508,8 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
              [&](int e, float v) {
                X[(size_t)(e / rest) * ksm + head + e % rest] = from_f<W>(v);
              });
-    if (csize > 1 && (stride * (int)sizeof(W)) % 16 == 0) {
-      mbar_wait(mbar, mphase);
-      mphase ^= 1;
-    }
+    mbar_wait(mbar, mphase);
+    mphase ^= 1;
   };
   auto stage_done = [&]() {
     cp_async_wait_all();
@@ -565,7 +529,6 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
   };
   // out = Ws (matrix i) . X over folds [f0, f0 + nf); epi(row, fold, value)
   auto product = [&](int i, int f0, int nf, auto&& epi) {
-    MARK(start);
     const int rows = L.rows[i], mt = (rows + 15) / 16, nt = (nf + 7) / 8;
     const int kpad = ceil_to(L.K[i], 16), g = lane >> 2, tq = lane & 3;
     for (int w = warp; w < mt * nt; w += kWarps) {
@@ -579,13 +542,11 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
       }
     }
     __syncthreads();
-    PART(1, start);
   };
   // one GRU's gates for the block's units: h' = GRU(gx + bi, gh, bn; h);
   // u += h'; rounded h' -> xh, rounded u -> xu
   auto gates = [&](const float* bi, const float* bn, const float* gh, float* h, W* xh,
                    W* xu) {
-    MARK(start);
     for (int e = tid; e < mu * F; e += kThreads) {
       const int i = e / F, f = e % F;
       const size_t a = (size_t)i * F + f, b = a + (size_t)nu * F, c = b + (size_t)nu * F;
@@ -600,7 +561,6 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
       xu[(size_t)f * RS + j0 + i] = from_f<W>(u);
     }
     __syncthreads();
-    PART(2, start);
   };
 
   // a layer over all folds, one stage at a time: the conditioning columns
@@ -610,10 +570,8 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
     for (int f0 = 0; f0 < F; f0 += fchunk) {
       const int nf = min(fchunk, F - f0);
       if (!prestaged) cond(f0, nf);
-      MARK(start);
       stage_rows(src, stride, width, f0, nf);
       stage_done();
-      PART(0, start);
       product(mat, f0, nf, epi);
     }
   };
@@ -621,8 +579,7 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
     return [&, width, kpad](int, int nf) { stage_zero(width, kpad, nf); };
   };
 
-  MARK(mark);
-  if (csize > 1) cluster_sync();  // every mbarrier of the cluster is initialised
+  cluster_sync();  // every mbarrier of the cluster is initialised
   if (single && use_u) cond_I(0, 0, F);
   for (int t = 0; t <= T; ++t) {
     const int par = t & 1, prv = par ^ 1;
@@ -659,7 +616,6 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
         });
       }
     }
-    PHASE(0, mark);  // x from the keys, I-dense
     // P1 (cont.): the hidden products of step t-1's states
     if (use_u) {
       layer(2, xh1 + (size_t)prv * F * RS, RS, R, false, no_cond(R, kR),
@@ -667,9 +623,7 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
       layer(4, xh2 + (size_t)prv * F * RS, RS, R, false, no_cond(R, kR),
             [&](int r, int f, float v) { gh2[(size_t)r * F + f] = v; });
     }
-    PHASE(1, mark);  // hidden products
     grid_sync(p.bar, target, G);
-    PHASE(2, mark);  // barrier
     // P2: GRU1 on u; u += h1
     if (use_u) {
       layer(1, xu1 + (size_t)par * F * RS, RS, R, false, no_cond(R, kR),
@@ -677,9 +631,7 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
       gates(b1i, b1n, gh1, h1, xh1 + (size_t)par * F * RS, xu2 + (size_t)par * F * RS);
       if (single) cond_aux(R, 1, t, 0, F);
     }
-    PHASE(3, mark);  // GRU1
     grid_sync(p.bar, target, G);
-    PHASE(4, mark);  // barrier
     // P3: GRU2 on [u, a2]; u += h2
     if (use_u) {
       layer(3, xu2 + (size_t)par * F * RS, RS, R, single,
@@ -688,9 +640,7 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
       gates(b2i, b2n, gh2, h2, xh2 + (size_t)par * F * RS, xu3 + (size_t)par * F * RS);
     }
     if (single && use_v) cond_aux(R, 2, t, 0, F);
-    PHASE(5, mark);  // GRU2
     grid_sync(p.bar, target, G);
-    PHASE(6, mark);  // barrier
     // P4: fc1 = relu(W [u, a3] + b)
     if (use_v) {
       layer(5, xu3 + (size_t)par * F * RS, RS, R, single,
@@ -701,9 +651,7 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
             });
       if (single) cond_aux(FC, 3, t, 0, F);
     }
-    PHASE(7, mark);  // fc1
     grid_sync(p.bar, target, G);
-    PHASE(8, mark);  // barrier
     // P5: fc2 = relu(W [fc1, a4] + b)
     if (use_v) {
       layer(6, xf1 + (size_t)par * F * FS, FS, FC, single,
@@ -713,9 +661,7 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
                 xf2[((size_t)par * F + f) * FS + v0 + r] = from_f<W>(fmaxf(v + bf2[r], 0.f));
             });
     }
-    PHASE(9, mark);  // fc2
     grid_sync(p.bar, target, G);
-    PHASE(10, mark);  // barrier
     // P6: logits of the block's classes (+ Gumbel noise), best per fold
     if (use_q) {
       layer(7, xf2 + (size_t)par * F * FS, FS, FC, false, no_cond(FC, kF),
@@ -742,10 +688,45 @@ __global__ void __launch_bounds__(kThreads, 1) wavernn_sample_kernel(Params<W, C
       }
     }
     if (single && use_u && t + 1 < T) cond_I(t + 1, 0, F);
-    PHASE(11, mark);  // fc3, argmax
     grid_sync(p.bar, target, G);
-    PHASE(12, mark);  // barrier
   }
+}
+
+// The launch configuration: G blocks of kThreads in clusters of kCluster,
+// cooperative when `cooperative` (the occupancy query takes the cluster
+// only). `attrs` holds the attributes `cfg` points at.
+void configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attrs)[2], int G, int smem,
+               bool cooperative, cudaStream_t stream) {
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = kCluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cfg = {};
+  cfg.gridDim = dim3(G);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = cooperative ? 2 : 1;
+}
+
+// The blocks of the kernel that the card keeps resident at once, in
+// clusters of kCluster, with `smem` bytes of shared memory each.
+template <typename W, typename Cd>
+cudaError_t resident_blocks(int smem, int* out) {
+  auto kernel = wavernn_sample_kernel<W, Cd>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  configure(cfg, attrs, kCluster, smem, false, nullptr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  *out = clusters * kCluster;
+  return err;
 }
 
 template <typename W, typename Cd>
@@ -753,47 +734,11 @@ int launch(const void* mels, const void* aux, const void* const* wp, void* label
            void* arg, void* state, void* bar, const Dims& d, int smem, int greedy,
            int time_major, unsigned long long seed, cudaStream_t stream) {
   const Layout L = layout(d);
-  if (L.bytes != smem || smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  auto kernel = wavernn_sample_kernel<W, Cd>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (L.bytes != smem || smem > kSmemLimit || d.G % kCluster) return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  cudaError_t err = resident_blocks<W, Cd>(smem, &resident);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, dev = 0, sms = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if (d.G > per_sm * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // clusters of 4 (else 2) blocks share their staging, if the card can keep
-  // the whole grid resident in clusters of that size
-  int csize = 1;
-  cudaLaunchAttribute attrs[2];
-  attrs[0].id = cudaLaunchAttributeCooperative;
-  attrs[0].val.cooperative = 1;
-  attrs[1].id = cudaLaunchAttributeClusterDimension;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(d.G);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = stream;
-  cfg.attrs = attrs;
-  for (int c = 4; c >= 2; c /= 2) {
-    if (d.G % c) continue;
-    attrs[1].val.clusterDim.x = c;
-    attrs[1].val.clusterDim.y = 1;
-    attrs[1].val.clusterDim.z = 1;
-    cfg.attrs = attrs + 1;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) == cudaSuccess &&
-        clusters * c >= d.G) {
-      csize = c;
-      break;
-    }
-    cudaGetLastError();  // a refused query is not an error of the launch
-  }
+  if (d.G > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
   Params<W, Cd> p;
   p.mels = static_cast<const Cd*>(mels);
   p.aux = static_cast<const Cd*>(aux);
@@ -808,13 +753,10 @@ int launch(const void* mels, const void* aux, const void* const* wp, void* label
   p.time_major = time_major;
   p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   p.seed_hi = (uint32_t)(seed >> 32);
-  p.csize = csize;
-  attrs[1].val.clusterDim.x = csize;
-  attrs[1].val.clusterDim.y = 1;
-  attrs[1].val.clusterDim.z = 1;
-  cfg.attrs = attrs;
-  cfg.numAttrs = csize > 1 ? 2 : 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  configure(cfg, attrs, d.G, smem, true, stream);
+  err = cudaLaunchKernelEx(&cfg, wavernn_sample_kernel<W, Cd>, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -830,8 +772,8 @@ int launch(const void* mels, const void* aux, const void* const* wp, void* label
 // (zeroed uint64), state (f32), bar (a zeroed uint32). Launches
 // cooperatively on `stream` without synchronising; returns the CUDA error
 // code of the launch (cudaErrorInvalidValue when `smem` disagrees with the
-// kernel's own layout, cudaErrorCooperativeLaunchTooLarge when G blocks
-// cannot all be resident).
+// kernel's own layout or G is not a multiple of the cluster size,
+// cudaErrorCooperativeLaunchTooLarge when G blocks cannot all be resident).
 extern "C" int wavernn_sample_launch(const void* mels, const void* aux,
                                      const void* const* weights, void* labels, void* xch,
                                      void* arg, void* state, void* bar, int F, int T, int M,
@@ -851,18 +793,15 @@ extern "C" int wavernn_sample_launch(const void* mels, const void* aux,
                                       smem, greedy, 0, seed, s);
 }
 
-#ifdef WAVERNN_PROFILE
-// The phase counters (cycles summed over blocks and steps) into `out`
-// (kPhases values), then zeroes them. Synchronises the device.
-extern "C" int wavernn_sample_phase_cycles(unsigned long long* out) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(unsigned long long) * kPhases);
-  const unsigned long long zeros[kPhases] = {};
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_phase_cycles, zeros, sizeof(zeros));
-  return (int)err;
+// The blocks the card keeps resident at once, in clusters of 4, of the
+// kernel for these weights (f32 when bf16 == 0, else bf16) and conditioning
+// layout, at the most shared memory a block may use: the grid `plan` may
+// take. Writes it to `out`; returns the CUDA error code.
+extern "C" int wavernn_sample_resident_blocks(int bf16, int time_major, int* out) {
+  if (!bf16) return (int)resident_blocks<float, float>(kSmemLimit, out);
+  if (time_major) return (int)resident_blocks<__nv_bfloat16, __nv_bfloat16>(kSmemLimit, out);
+  return (int)resident_blocks<__nv_bfloat16, float>(kSmemLimit, out);
 }
-#endif
 
 extern "C" const char* wavernn_sample_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

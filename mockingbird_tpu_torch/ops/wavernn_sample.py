@@ -9,11 +9,12 @@ per step, for F independent folds, I-dense → GRU1 → GRU2 → fc1 → fc2 →
 T-step loop inside one launch.
 
 The kernel is persistent and weight-stationary: one cooperative launch of
-at most one block per SM, each block holding its slice of every weight
-matrix in shared memory for the whole launch and exchanging layer outputs
-with the others through global memory between grid barriers. ``plan``
-places the slices, a pure function of the widths, the fold count, the
-weight dtype and the SM count.
+at most one block per SM, in clusters of 4, each block holding its slice of
+every weight matrix in shared memory for the whole launch and exchanging
+layer outputs with the others through global memory between grid barriers.
+``plan`` places the slices, a pure function of the widths, the fold count,
+the weight dtype and the blocks the card keeps resident in clusters of 4
+(``resident_blocks``).
 
 ``wavernn_sample`` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors. Weight layout matches flax ``nn.GRUCell``
@@ -44,6 +45,7 @@ W_NAMES = ("I_w", "I_b", "g1_wi", "g1_bi", "g1_wh", "g1_bn",
 
 
 SMEM_LIMIT = 232448      # dynamic shared memory one block may use on sm_90
+CLUSTER = 4              # blocks per cluster: they share the staging of exchanged rows
 
 
 def _ceil(a: int, b: int) -> int:
@@ -60,7 +62,8 @@ class Plan:
     ``state_elems`` (f32) elements; ``exchange_bytes`` written to the
     exchange buffers per step (by all blocks) and ``staged_bytes`` staged
     from them into shared memory per step (summed over blocks; a cluster's
-    blocks share one read of each row from L2)."""
+    blocks share one read of each row from L2). ``grid`` is a multiple of
+    ``CLUSTER``; blocks past the last owner own nothing."""
     grid: int
     nu: int
     nv: int
@@ -89,17 +92,22 @@ def _smem_bytes(rows, ks, ksmax, fchunk, nbias, wbytes) -> int:
 
 
 def plan(rnn: int, fc: int, n_classes: int, aux_d: int, n_mels: int, n_folds: int,
-         dtype: torch.dtype, sm_count: int) -> Plan:
+         dtype: torch.dtype, max_blocks: int) -> Plan:
     """The launch plan of the kernel for these widths, ``n_folds`` folds,
-    weights of ``dtype`` and a card of ``sm_count`` SMs. Raises
-    ``ValueError`` when a block's slices and one 8-fold stage do not fit in
-    shared memory."""
+    weights of ``dtype`` and a card that keeps ``max_blocks`` blocks
+    resident in clusters of ``CLUSTER`` (``resident_blocks``; at most its SM
+    count). Raises ``ValueError`` when that is less than one cluster, or a
+    block's slices and one 8-fold stage do not fit in shared memory."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"weights must be float32 or bfloat16, not {dtype}")
     wb = 2 if dtype == torch.bfloat16 else 4
-    g = max(1, min(sm_count, max(rnn, fc, n_classes)))
+    cap = max_blocks // CLUSTER * CLUSTER
+    if cap < CLUSTER:
+        raise ValueError(f"the sampler cannot place a cluster of {CLUSTER} blocks on a card "
+                         f"that keeps {max_blocks} resident")
+    g = min(cap, max(rnn, fc, n_classes))
     nu, nv, nq = _ceil(rnn, g), _ceil(fc, g), _ceil(n_classes, g)
-    g = max(_ceil(rnn, nu), _ceil(fc, nv), _ceil(n_classes, nq))
+    g = _ceil(max(_ceil(rnn, nu), _ceil(fc, nv), _ceil(n_classes, nq)), CLUSTER) * CLUSTER
     k0 = 1 + n_mels + aux_d
     rows = (nu, 3 * nu, 3 * nu, 3 * nu, 3 * nu, nv, nv, nq)
     ks = [_ceil(k, 16) * 16 + 16 // wb
@@ -111,12 +119,15 @@ def plan(rnn: int, fc: int, n_classes: int, aux_d: int, n_mels: int, n_folds: in
     if fchunk < 8:
         raise ValueError(
             f"the sampler cannot place rnn={rnn}, fc={fc}, classes={n_classes} in "
-            f"{dtype} on {sm_count} SMs: a block's weight slices and one 8-fold stage need "
+            f"{dtype} on {max_blocks} blocks: a block's weight slices and one 8-fold stage need "
             f"{_smem_bytes(rows, ks, max(ks), 8, nbias, wb)} B of shared memory, "
             f"more than {SMEM_LIMIT}")
     rs, fs = _ceil(rnn, 8) * 8, _ceil(fc, 8) * 8
     f = n_folds
-    unit_blocks, fc_blocks, class_blocks = _ceil(rnn, nu), _ceil(fc, nv), _ceil(n_classes, nq)
+    # a layer runs in every block of a cluster that owns some of it
+    unit_blocks, fc_blocks, class_blocks = (_ceil(_ceil(width, per), CLUSTER) * CLUSTER
+                                            for width, per in ((rnn, nu), (fc, nv),
+                                                               (n_classes, nq)))
     return Plan(grid=g, nu=nu, nv=nv, nq=nq,
                 fchunk=fchunk,
                 smem=_smem_bytes(rows, ks, max(ks), fchunk, nbias, wb),
@@ -275,8 +286,7 @@ def _launch(lib: ctypes.CDLL, weights, mels, aux, seed, n_classes, greedy,
     f, t_len, m = mels.shape
     aux_d = aux.shape[2] // 4
     rnn, fc = weights["I_w"].shape[1], weights["fc1_w"].shape[1]
-    pl = plan(rnn, fc, n_classes, aux_d, m, f, wdt,
-              torch.cuda.get_device_properties(dev).multi_processor_count)
+    pl = plan(rnn, fc, n_classes, aux_d, m, f, wdt, resident_blocks(dev, wdt, time_major))
     if time_major:
         # (F, T, D) → (T, F, D) in the weight dtype: one copy, and the
         # per-step rows of all folds are then adjacent
@@ -339,38 +349,28 @@ def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: to
     return labels
 
 
-# the 13 phases of a step, in order, then 4 parts counted within them
-PHASES = ("x and I-dense", "hidden products", "barrier", "GRU1", "barrier", "GRU2", "barrier",
-          "fc1", "barrier", "fc2", "barrier", "fc3 and argmax", "barrier")
-PARTS = ("staging exchanged rows", "products", "GRU gates",
-         "conditioning columns (cp.async issue, or gather)")
-
-
-def phase_cycles(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: torch.Tensor,
-                 seed: int, n_classes: int = 512, greedy: bool = False,
-                 time_major: bool = True):
-    """One launch of the kernel built with its phase timers
-    (``-DWAVERNN_PROFILE``) on CUDA tensors → (``PHASES + PARTS``, SM cycles
-    of each per step, averaged over the blocks; the parts are counted again
-    within the phases). A measurement, not a path: it is not counted in the
-    launch counts."""
-    _check(weights, mels, aux, n_classes)
-    from .build import load
-    lib = _bind(load("wavernn_sample", ("WAVERNN_PROFILE",)))
-    out = (ctypes.c_ulonglong * (len(PHASES) + len(PARTS)))()
-    lib.wavernn_sample_phase_cycles(out)                 # zero the counters
-    _launch(lib, weights, mels, aux, seed, n_classes, greedy, time_major)
-    err = lib.wavernn_sample_phase_cycles(out)
-    if err != 0:
-        raise RuntimeError(f"reading the phase counters failed: CUDA error {err}")
-    pl = plan(weights["I_w"].shape[1], weights["fc1_w"].shape[1], n_classes,
-              aux.shape[2] // 4, mels.shape[2], mels.shape[0], weights["I_w"].dtype,
-              torch.cuda.get_device_properties(mels.device).multi_processor_count)
-    return PHASES + PARTS, [v / (pl.grid * mels.shape[1]) for v in out]
-
-
 wavernn_sample.launches = 0
 wavernn_sample.launches_fold_major = 0
+
+
+def resident_blocks(device, dtype: torch.dtype = torch.bfloat16, time_major: bool = True) -> int:
+    """The blocks of the kernel (for weights of ``dtype`` and this layout)
+    that the CUDA card ``device`` keeps resident at once in clusters of
+    ``CLUSTER``: the ``max_blocks`` of ``plan``. Builds the kernel if
+    needed."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"resident_blocks needs a CUDA device, not {dev}")
+    from .build import load
+    lib = _bind(load("wavernn_sample"))
+    out = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.wavernn_sample_resident_blocks(int(dtype == torch.bfloat16), int(time_major),
+                                                 ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"querying the sampler's resident blocks failed: CUDA error {err} "
+                           f"({lib.wavernn_sample_error_string(err).decode()})")
+    return out.value
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -381,7 +381,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.restype = i
         lib.wavernn_sample_error_string.argtypes = [i]
         lib.wavernn_sample_error_string.restype = ctypes.c_char_p
-        if hasattr(lib, "wavernn_sample_phase_cycles"):
-            lib.wavernn_sample_phase_cycles.argtypes = [p]
-            lib.wavernn_sample_phase_cycles.restype = i
+        lib.wavernn_sample_resident_blocks.argtypes = [i, i, p]
+        lib.wavernn_sample_resident_blocks.restype = i
     return lib

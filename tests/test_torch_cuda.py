@@ -14,8 +14,9 @@ import torch
 from mockingbird_tpu_torch.models.vocoder import WaveRNN, wavernn_config
 from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
                                                        maximum_path_plain)
-from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, plan,
-                                                      wavernn_sample, wavernn_sample_plain)
+from mockingbird_tpu_torch.ops.wavernn_sample import (CLUSTER, pack_wavernn_weights, plan,
+                                                      resident_blocks, wavernn_sample,
+                                                      wavernn_sample_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -157,18 +158,21 @@ def test_kernel_matches_plain_across_shapes(card, cfg, weights, n_folds, t_len):
 
 @pytest.mark.parametrize("rnn", [130, 131])
 def test_kernel_at_odd_widths(card, rnn):
-    """rnn 130 and 131 give grids of 130 and 131 blocks (one unit each), so
-    the launch takes clusters of 2 or none at all, and widths that are not
-    a multiple of 8 take the gathered conditioning and the exchange rows'
+    """rnn 130 and 131 own more units than the card keeps blocks resident in
+    clusters of 4, so the grid is rounded to whole clusters within that
+    (blocks past the last owner own nothing), and widths that are not a
+    multiple of 8 take the gathered conditioning and the exchange rows'
     gathered tails: held against the plain version by the gap rule, both
     layouts equal."""
     cfg = dict(SMALL, rnn_dims=rnn, fc_dims=rnn - 90)
     model, mels, aux = _case(card, cfg, 9, 48, seed=rnn)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
     for dtype, bound in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
         w = pack_wavernn_weights(model, dtype)
-        pl = plan(rnn, rnn - 90, 512, 4, 80, 9, dtype,
-                  torch.cuda.get_device_properties(card).multi_processor_count)
-        assert pl.grid == rnn
+        resident = resident_blocks(card, dtype)
+        assert resident % CLUSTER == 0 and CLUSTER <= resident <= sms
+        pl = plan(rnn, rnn - 90, 512, 4, 80, 9, dtype, resident)
+        assert pl.grid % CLUSTER == 0 and pl.grid <= resident
         for greedy in (True, False):
             p, gaps = wavernn_sample_plain(w, mels, aux, 4, greedy=greedy, return_gaps=True)
             k = wavernn_sample(w, mels, aux, 4, greedy=greedy)
@@ -184,8 +188,7 @@ def test_kernel_stages_folds_in_chunks(card):
     model, mels, aux = _case(card, {}, 200, 24, seed=4)
     for dtype, bound in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
         w = pack_wavernn_weights(model, dtype)
-        pl = plan(512, 512, 512, 32, 80, 200, dtype,
-                  torch.cuda.get_device_properties(card).multi_processor_count)
+        pl = plan(512, 512, 512, 32, 80, 200, dtype, resident_blocks(card, dtype))
         assert pl.fchunk < 200
         k = wavernn_sample(w, mels, aux, 2)
         p, gaps = wavernn_sample_plain(w, mels, aux, 2, return_gaps=True)
@@ -211,9 +214,9 @@ def test_kernel_refuses_a_width_it_cannot_place(card):
     assert wavernn_sample.launches == before
 
 
-def _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=0, ties=False):
+def _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=0, ties=False, scale=1.0):
     rng = np.random.RandomState(seed)
-    nc = rng.randn(b, t_y, t_x).astype(np.float32)
+    nc = (rng.randn(b, t_y, t_x) * scale).astype(np.float32)
     if ties:
         nc = np.round(nc)
     return (torch.from_numpy(nc).to(card), torch.as_tensor(t_ys, dtype=torch.int32, device=card),
@@ -221,14 +224,24 @@ def _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=0, ties=False):
 
 
 @pytest.mark.parametrize("case", ["ragged", "ties", "tx1", "square", "long",
-                                  "tx31", "tx32", "tx33", "tx1024"])
+                                  "tx31", "tx32", "tx33", "tx1024", "ty_below_tx"])
 def test_mas_kernel_exact(card, case):
     """Every element of the kernel's path equals the plain version's."""
     rng = np.random.RandomState(1)
     b, t_y, t_x = 16, 1000, 160
     t_xs = rng.randint(1, t_x + 1, b)
     t_ys = np.maximum(rng.randint(1, t_y + 1, b), t_xs)
-    ties = case == "ties"
+    ties, scale = case == "ties", 1.0
+    if case == "ty_below_tx":
+        # most elements have fewer rows than columns, which leaves no band:
+        # every cell holds exactly -1e9. neg_cent of magnitude ~1e3 (VITS's
+        # is in the hundreds) survives an add to -1e9, so a cell wrongly
+        # taken as in the band changes the walk back
+        t_y = 120
+        t_ys = rng.randint(1, t_y + 1, b)
+        t_ys[:4] = np.minimum(t_ys[:4], t_xs[:4])
+        t_xs[4:12] = np.maximum(t_xs[4:12], t_ys[4:12] + 1)
+        scale = 1000.0
     if case == "tx1":
         t_x, t_xs = 1, np.ones(b, int)
     elif case == "square":
@@ -248,7 +261,7 @@ def test_mas_kernel_exact(card, case):
         t_xs[0] = t_x
         t_ys = np.maximum(rng.randint(t_y // 2, t_y + 1, b), t_xs)
         ties = True
-    nc, tys, txs = _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=3, ties=ties)
+    nc, tys, txs = _mas_case(card, b, t_y, t_x, t_ys, t_xs, seed=3, ties=ties, scale=scale)
     k = maximum_path_cuda(nc, tys, txs)
     p = maximum_path_plain(nc, tys, txs)
     torch.cuda.synchronize()

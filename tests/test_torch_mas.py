@@ -39,6 +39,27 @@ def test_plain_equals_oracle_scan_and_pallas(seed, b, t_y, t_x, ties):
     np.testing.assert_array_equal(got, np.asarray(pallas))
 
 
+@pytest.mark.parametrize("seed", [6, 7])
+def test_plain_equals_jax_with_fewer_rows_than_columns(seed):
+    """Elements with t_y < t_x have no band: every cell holds exactly -1e9
+    and the walk back steps left only on the diagonal. neg_cent of magnitude
+    ~1e3 survives an add to -1e9, so a cell wrongly taken into the band
+    would change the path."""
+    rng = np.random.RandomState(seed)
+    b, t_y, t_x = 6, 10, 16
+    nc = (rng.randn(b, t_y, t_x) * 1000).astype(np.float32)
+    t_xs = rng.randint(1, t_x + 1, b).astype(np.int32)
+    t_ys = rng.randint(1, t_y + 1, b).astype(np.int32)
+    t_xs[:4] = np.maximum(t_xs[:4], t_ys[:4] + 1)
+    got = maximum_path_plain(torch.from_numpy(nc), torch.from_numpy(t_ys),
+                             torch.from_numpy(t_xs)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(maximum_path_with_lengths(nc, t_ys, t_xs)))
+    pallas = maximum_path_pallas(jnp.asarray(nc), jnp.asarray(t_ys), jnp.asarray(t_xs),
+                                 interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+    np.testing.assert_array_equal(got.sum(axis=(1, 2)), t_ys)
+
+
 def test_mask_wrapper_matches_jax():
     """``maximum_path(neg_cent, mask)``: lengths from the mask, the search in
     f32, the path times the mask in the caller's dtype."""
