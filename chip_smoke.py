@@ -12,16 +12,30 @@ Phases, each printing its elapsed seconds:
      ``saved_models/gan_run/eval/ground_truth.wav`` through GE2E, Tacotron
      and the WaveRNN vocoder, ``steps`` capped at 200 (random weights never
      meet the stop rule); then a second, warm pass times each stage;
-  4. VITS serving: ``VitsSynthesizer`` at the width of
+  4. the flagship path, Tacotron → HiFi-GAN through ``tts_batch``'s fused
+     branch: ``VoiceCloningPipeline(vocoder_fpath=None)`` (checked to build
+     a HiFi-GAN ``GanVocoder``), its generator rebuilt from a seed at the
+     width of ``saved_models/gan_run/vocoder_hifigan.json``, bf16 as
+     ``GanVocoder`` defaults. Run 1: the three texts, int16, mulaw8 and
+     float32 output. Run 2: ``bench.py``'s headline shape (batch 128,
+     ``steps`` 400, ``min_stop_token`` 11), warm stage times ``ar_decode``,
+     ``vocode``, ``d2h_fetch`` and ``e2e`` per format as ``bench.py`` takes
+     them, then ``tts_batch`` in chunks of 32; RTF, peak device memory and
+     the generator's FLOP count against the bf16 dense peak. Then the f32
+     generator on the card (TF32 off) against the same model on the CPU,
+     one Fre-GAN call at its stock config, and one
+     ``VoiceCloningPipeline(synthesizer="vits").tts_batch`` call. No kernel
+     is launched on this path;
+  5. VITS serving: ``VitsSynthesizer`` at the width of
      ``saved_models/vits_run/config.json``, seeded weights, the three texts,
      ``max_frames`` 1000, float and int16 output, a warm pass by stage;
-  5. VITS training: ``train`` for ``TRAIN_STEPS`` steps of batch 16 in bf16
+  6. VITS training: ``train`` for ``TRAIN_STEPS`` steps of batch 16 in bf16
      on a synthetic dataset whose one bucket is (900, 1000] frames with
      texts of 100-160 symbols, so the alignment search runs at its largest
      training shape (T_y 1000, T_x 160); the checkpoint it writes loads
      back; then the trainer's own step (``make_vits_step``) timed by part
      through module and optimizer hooks;
-  6. each kernel held against its plain PyTorch version on the card, with
+  7. each kernel held against its plain PyTorch version on the card, with
      the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
      (its fold-major layout) on the TTS path's own inputs, then timed at
      one utterance's folds and at 4 folds per SM, with the launch plan, the
@@ -29,7 +43,7 @@ Phases, each printing its elapsed seconds:
      (alignment search, exactly equal) on the training step's own inputs
      and on ragged, tied and band-less cases, timed per call with CUDA
      events, the kernel's own device time from a profiler trace beside it;
-  7. one ``kernels`` JSON line, then the contract line
+  8. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
 Every path is timed under PyTorch's defaults, which is what a caller of the
@@ -62,7 +76,8 @@ from mockingbird_tpu_torch.models.vits.model import vits_config
 from mockingbird_tpu_torch.models.vits.train import (BUCKET_BOUNDARIES, BucketBatcher,
                                                      VitsDataset, make_optimizer, make_vits_step,
                                                      to_device)
-from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder
+from mockingbird_tpu_torch.dsp import decode_mulaw8_to_int16
+from mockingbird_tpu_torch.models.vocoder import GanVocoder, WaveRnnVocoder
 from mockingbird_tpu_torch.models.vocoder import wavernn as wavernn_module
 from mockingbird_tpu_torch.ops import build
 from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
@@ -78,6 +93,7 @@ REF_WAV = ROOT / "saved_models/gan_run/eval/ground_truth.wav"
 TACOTRON_JSON = ROOT / "saved_models/attention_run/synthesizer.json"
 WAVERNN_JSON = ROOT / "saved_models/wavernn_run/vocoder_wavernn.json"
 VITS_JSON = ROOT / "saved_models/vits_run/config.json"
+GAN_JSON = ROOT / "saved_models/gan_run/vocoder_hifigan.json"
 TEXTS = ["this voice was cloned from a short reference recording",
          "欢迎使用语音克隆，今天天气很好",
          "ni3 hao3, zhe4 shi4 yi2 ge4 ce4 shi4"]
@@ -91,6 +107,14 @@ TRAIN_BATCH = 16
 TRAIN_FRAMES = (901, 1000)
 TRAIN_SYMBOLS = (100, 160)
 VITS_CFG: dict = {}          # overrides of the committed config (none on the card)
+# bench.py's headline shape: batch 128 of one text, 400 decode steps with a
+# stop threshold random weights never meet, tts_batch in chunks of 32
+BENCH_TEXT = "ni3 hao3 shi4 jie4 zhe4 shi4 yi2 ge4 ce4 shi4 ju4 zi3"
+BENCH_BATCH = 128
+BENCH_STEPS = 400
+BENCH_MIN_STOP = 11
+BENCH_CHUNK = 32
+GAN_CFG: dict = {}           # overrides of the committed sidecar (none on the card)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -315,6 +339,235 @@ def phase_tts(dev):
               f"defaults {float(np.abs(embed - ref).max()):.3g}")
         check(err < 1e-4, f"GE2E embedding on the card differs from the CPU by {err}")
     return pipe, captured, launches
+
+
+# ---------------------------------------------------------------------------
+# the flagship path: Tacotron → HiFi-GAN through tts_batch's fused branch
+# ---------------------------------------------------------------------------
+
+def generator_flops(cfg, frames: int) -> float:
+    """FLOPs of one HiFi-GAN ``Generator`` pass over ``frames`` mel frames
+    (2 per multiply-add). With C0 the initial channels, C_i = C0/2^(i+1),
+    u_i and k_i stage i's rate and kernel and r_i = u_0···u_i its samples
+    per frame (r_-1 = 1): conv_pre 2·M·C0·7; each transposed conv
+    2·C_(i-1)·C_i·k_i·r_(i-1) (every input step meets every tap); each
+    ResBlock1 of kernel k and n dilations 2n convs of 2·C_i²·k·r_i
+    (ResBlock2: n convs); conv_post 2·C_last·7·r_last. Per frame, times
+    ``frames``."""
+    c0, m = cfg.upsample_initial_channel, cfg.num_mels
+    per_conv = 2 if cfg.resblock == "1" else 1
+    total, r, ch_in = 2.0 * m * c0 * 7, 1, c0
+    for u, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        ch = ch_in // 2
+        total += 2.0 * ch_in * ch * k * r
+        r *= u
+        for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            total += per_conv * len(rd) * 2.0 * ch * ch * rk * r
+        ch_in = ch
+    total += 2.0 * ch_in * 7 * r
+    return total * frames
+
+
+def mulaw_labels(pcm16: np.ndarray) -> np.ndarray:
+    """mu-law-decoded int16 PCM back to its 8-bit labels (the table rises)."""
+    lut = decode_mulaw8_to_int16(np.arange(256, dtype=np.uint8)).astype(np.int32)
+    return np.searchsorted(lut, pcm16.astype(np.int32))
+
+
+def device_split(fn, top: int = 4) -> str:
+    """One warm call of ``fn`` traced by ``torch.profiler``: its CUDA
+    kernels' device time by kind (cuDNN/cuBLAS products, cuDNN's layout
+    transposes around them, element-wise, other), the top kernels, and the
+    busy share of an untraced call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    if not kernels:
+        return "device time not measured (the profiler trace holds no CUDA kernel)"
+    kinds = {"products": 0.0, "layout transposes": 0.0, "element-wise": 0.0, "other": 0.0}
+    for name, ms in kernels.items():
+        low = name.lower()
+        kind = ("layout transposes" if "nhwctonchw" in low or "nchwtonhwc" in low
+                else "products" if any(w in low for w in ("gemm", "xmma", "conv", "cudnn",
+                                                          "cutlass", "dgrad", "fprop"))
+                else "element-wise" if "elementwise" in low else "other")
+        kinds[kind] += ms
+    busy = sum(kinds.values())
+    tops = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return (f"device {busy:.2f} ms of {wall * 1e3:.2f} ms wall (busy {100 * busy / 1e3 / wall:.0f}%"
+            f"): " + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items())
+            + "; top: " + "; ".join(f"{n[:60]} {ms:.2f} ms" for n, ms in tops))
+
+
+def phase_hifigan_tts(dev):
+    pipe = VoiceCloningPipeline(vocoder_fpath=None, verbose=False, seed=0, device=dev)
+    check(isinstance(pipe.vocoder, GanVocoder) and pipe.vocoder.arch == "hifigan"
+          and pipe.vocoder.half, "the default pipeline's vocoder is not a bf16 HiFi-GAN")
+    # seeded weights at the trained export's width (its sidecar's config)
+    pipe.vocoder = voc = GanVocoder("hifigan", cfg=dict(Config.from_json(GAN_JSON), **GAN_CFG),
+                                    verbose=False, seed=0, device=dev)
+    syn = pipe.synthesizer
+    hop, sr = voc.cfg.hop_size, pipe.audio_cfg.sample_rate
+
+    def staged(texts, embeds, steps, min_stop, fmt):
+        """bench.py's fenced stages: one decode of the whole batch, one
+        generator call, one copy (mulaw8 decoded on the host inside it)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mels_dev, frame_lens = syn.synthesize_mels_device(texts, embeds,
+                                                          min_stop_token=min_stop, steps=steps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pcm_dev = voc.vocode_device(mels_dev, pcm_format=fmt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pcm = pcm_dev.cpu().numpy()
+        if fmt == "mulaw8":
+            pcm = decode_mulaw8_to_int16(pcm)
+        lens = frame_lens.cpu().numpy()
+        t3 = time.perf_counter()
+        wavs = [pcm[j, : int(lens[j]) * hop] for j in range(len(texts))]
+        return dict(ar_decode=t1 - t0, vocode=t2 - t1, d2h_fetch=t3 - t2, e2e=t3 - t0), wavs
+
+    def show(st, audio_s):
+        return (", ".join(f"{k} {v:.4f} s" for k, v in st.items())
+                + f"; RTF {audio_s / st['e2e']:.1f}, compute RTF "
+                f"{audio_s / (st['ar_decode'] + st['vocode']):.1f}")
+
+    with Phase("HiFi-GAN TTS path: VoiceCloningPipeline(vocoder_fpath=None).tts_batch, fused"):
+        check_config("HiFi-GAN", voc.cfg, GAN_JSON)
+        n_params = sum(p.numel() for p in voc.model.parameters())
+        print(f"  generator: rates {voc.cfg.upsample_rates}, kernels "
+              f"{voc.cfg.upsample_kernel_sizes}, {voc.cfg.upsample_initial_channel} initial "
+              f"channels, hop {hop}, {n_params} parameters in "
+              f"{next(voc.model.parameters()).dtype}")
+        zero_counts()
+        outs = {}
+        for fmt in ("int16", "mulaw8", "float32"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[fmt] = pipe.tts_batch(TEXTS, REF_WAV, steps=STEPS, pcm_format=fmt)
+            torch.cuda.synchronize()
+            print(f"  run 1, {fmt}: {time.perf_counter() - t0:.3f} s (the first includes "
+                  f"the first calls), samples {[len(w) for w in outs[fmt]]}")
+        for i16, mu8, f32 in zip(outs["int16"], outs["mulaw8"], outs["float32"]):
+            check(i16.dtype == mu8.dtype == np.int16 and f32.dtype == np.float32,
+                  "output dtypes")
+            check(len(i16) == len(mu8) == len(f32) and 0 < len(i16) <= STEPS * hop
+                  and len(i16) % hop == 0, f"output lengths {len(i16)}, {len(mu8)}, {len(f32)}")
+            check(bool(np.isfinite(f32).all()) and float(np.abs(f32).max()) > 0,
+                  "float output not finite or silent")
+            q = np.round(np.clip(f32, -1, 1) * 32767).astype(np.int16)
+            check(int(np.abs(q.astype(np.int32) - i16).max()) <= 1,
+                  "int16 output differs from the float one")
+            check(int(np.abs(mulaw_labels(mu8) - mulaw_labels(q)).max()) <= 1,
+                  "mulaw8 output differs from the float one by more than one label")
+        pipe._embed_cache.clear()
+        embed = pipe.embed_reference(REF_WAV)
+        embeds = np.tile(embed, (len(TEXTS), 1))
+        audio_s = sum(len(w) for w in outs["int16"]) / sr
+        for fmt in ("mulaw8", "int16"):
+            staged(TEXTS, embeds, STEPS, 5, fmt)                              # warm
+            st, _ = staged(TEXTS, embeds, STEPS, 5, fmt)
+            print(f"  warm, {fmt}: {show(st, audio_s)} ({audio_s:.2f} s of audio)")
+        launches = read_counts()
+        print(f"  launches on the HiFi-GAN path: {launches} (the path needs no kernel)")
+        check(not any(launches.values()), f"a kernel launched on the HiFi-GAN path: {launches}")
+
+    with Phase(f"HiFi-GAN TTS path at bench.py's shape: batch {BENCH_BATCH}, steps "
+               f"{BENCH_STEPS}, min_stop_token {BENCH_MIN_STOP}, bf16"):
+        texts = [BENCH_TEXT] * BENCH_BATCH
+        embeds = np.tile(embed, (BENCH_BATCH, 1))
+        zero_counts()
+        for fmt in ("mulaw8", "int16"):
+            staged(texts, embeds, BENCH_STEPS, BENCH_MIN_STOP, fmt)       # warm
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = {}
+        audio_s = BENCH_BATCH * BENCH_STEPS * hop / sr
+        for fmt in ("mulaw8", "int16"):
+            times[fmt], wavs = staged(texts, embeds, BENCH_STEPS, BENCH_MIN_STOP, fmt)
+            check(len(wavs) == BENCH_BATCH and all(len(w) == BENCH_STEPS * hop for w in wavs),
+                  f"bench-shape lengths {sorted({len(w) for w in wavs})}")
+            print(f"  {fmt}: {show(times[fmt], audio_s)}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        frames = BENCH_BATCH * BENCH_STEPS
+        flops = generator_flops(voc.cfg, frames)
+        vocode = min(st["vocode"] for st in times.values())
+        print(f"  {audio_s:.1f} s of audio; decode "
+              f"{times['int16']['ar_decode'] / (BENCH_STEPS // 2) * 1e3:.2f} ms per step "
+              f"({BENCH_STEPS // 2} steps of r=2); peak device memory "
+              f"{peak / 2**30:.2f} GiB ({tf32_state()})")
+        print(f"  generator: {flops:.4g} FLOP for {frames} frames, {flops / vocode / 1e12:.1f} "
+              f"TFLOP/s in its best vocode stage, {100 * flops / vocode / PEAK_BF16_FLOPS:.1f}% "
+              f"of the {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak")
+        kw = dict(steps=BENCH_STEPS, min_stop_token=BENCH_MIN_STOP, batch_size=BENCH_CHUNK,
+                  embed=embeds)
+        pipe.tts_batch(texts, None, **kw)                                    # warm
+        for fmt in ("mulaw8", "int16"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wavs = pipe.tts_batch(texts, None, pcm_format=fmt, **kw)
+            wall = time.perf_counter() - t0
+            check(len(wavs) == BENCH_BATCH and all(len(w) == BENCH_STEPS * hop for w in wavs),
+                  "tts_batch lengths at the bench shape")
+            print(f"  tts_batch(batch_size={BENCH_CHUNK}, {fmt}): {wall:.4f} s, RTF "
+                  f"{audio_s / wall:.1f}")
+        launches = read_counts()
+        check(not any(launches.values()), f"a kernel launched on the HiFi-GAN path: {launches}")
+        mels_dev, _ = syn.synthesize_mels_device(texts, embeds, min_stop_token=BENCH_MIN_STOP,
+                                                 steps=BENCH_STEPS)
+        print("  ar_decode, " + device_split(lambda: syn.synthesize_mels_device(
+            texts, embeds, min_stop_token=BENCH_MIN_STOP, steps=BENCH_STEPS)))
+        print("  vocode (int16), " + device_split(lambda: voc.vocode_device(mels_dev)))
+        # later phases read their own peak
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    with Phase("HiFi-GAN generator on the card against the CPU, Fre-GAN, VITS pipeline"):
+        mel = torch.from_numpy(np.random.RandomState(0).randn(1, 64, 80).astype(np.float32) - 2)
+        card32 = GanVocoder("hifigan", cfg=dict(voc.cfg), verbose=False, seed=0, half=False,
+                            device=dev)
+        cpu32 = GanVocoder("hifigan", cfg=dict(voc.cfg), verbose=False, seed=0, half=False,
+                           device="cpu")
+        with full_f32():
+            got = card32.vocode_device(mel.to(dev), pcm16=False).cpu().numpy()
+        want = cpu32.vocode_device(mel, pcm16=False).numpy()
+        err = float(np.abs(got - want).max())
+        with_tf32 = float(np.abs(card32.vocode_device(mel.to(dev), pcm16=False).cpu().numpy()
+                                 - want).max())
+        print(f"  f32 generator, one mel of 64 frames: max |card - cpu| = {err:.3g} with TF32 "
+              f"off (tolerance 1e-4); under the defaults {with_tf32:.3g}")
+        check(err <= 1e-4, f"the f32 generator on the card differs from the CPU by {err}")
+        fre = GanVocoder("fregan", verbose=False, seed=0, device=dev)
+        mel_f = torch.randn(len(TEXTS), STEPS, 80, device=dev) - 2
+        ms = cuda_ms(lambda: fre.vocode_device(mel_f), reps=3)
+        out = fre.vocode_device(mel_f, pcm16=False)
+        check(tuple(out.shape) == (len(TEXTS), STEPS * fre.cfg.hop_size)
+              and bool(torch.isfinite(out).all()), "Fre-GAN output")
+        print(f"  Fre-GAN (stock config, rates {fre.cfg.upsample_rates}, bf16): "
+              f"{tuple(mel_f.shape)} → {tuple(out.shape)} in {ms:.3f} ms per call (CUDA events); "
+              + device_split(lambda: fre.vocode_device(mel_f)))
+        vits_pipe = VoiceCloningPipeline(synthesizer="vits", verbose=False, seed=0, device=dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        vw = vits_pipe.tts_batch(TEXTS, REF_WAV)
+        wall = time.perf_counter() - t0
+        check(not any(read_counts().values()), "a kernel launched in VITS serving")
+        check(len(vw) == len(TEXTS) and all(w.dtype == np.int16 and len(w) > 0 for w in vw),
+              "VITS pipeline output")
+        print(f"  VoiceCloningPipeline(synthesizer='vits').tts_batch: samples "
+              f"{[len(w) for w in vw]} in {wall:.3f} s (the first call)")
 
 
 # ---------------------------------------------------------------------------
@@ -737,6 +990,7 @@ def main() -> int:
                     print(f"  ptxas {name}:", line.strip())
 
     pipe, captured, tts_launches = phase_tts(dev)
+    phase_hifigan_tts(dev)
     phase_vits_serve(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train_inputs, train_launches = phase_vits_train(dev, Path(tmp))

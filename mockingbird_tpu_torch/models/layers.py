@@ -190,15 +190,15 @@ def same_padding(t: int, k: int, stride: int = 1, dilation: int = 1) -> Tuple[in
 
 
 class Conv1d(nn.Module):
-    """flax ``nn.Conv`` over one axis with ``padding="SAME"``, optionally
-    wrapped in flax ``nn.WeightNorm``. ``weight`` is
+    """flax ``nn.Conv`` over one axis with ``padding="SAME"`` (or
+    ``"VALID"``), optionally wrapped in flax ``nn.WeightNorm``. ``weight`` is
     in torch's (out, in/groups, k) layout; a weight-normed conv keeps it as
     the direction and ``scale`` (out,) as the gain, initialised to 1 as flax
     does. Takes (B, T, C) when ``time_major``, else (B, C, T)."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1, dilation: int = 1,
                  groups: int = 1, bias: bool = True, weight_norm: bool = False,
-                 time_major: bool = True, zero_init: bool = False):
+                 time_major: bool = True, zero_init: bool = False, padding: str = "SAME"):
         super().__init__()
         conv = nn.Conv1d(in_ch, out_ch, k, stride=stride, dilation=dilation, groups=groups,
                          bias=bias)
@@ -212,6 +212,7 @@ class Conv1d(nn.Module):
         self.weight_norm = weight_norm
         self.k, self.stride, self.dilation, self.groups = k, stride, dilation, groups
         self.time_major = time_major
+        self.padding = padding
 
     def kernel(self) -> torch.Tensor:
         if self.weight_norm:
@@ -223,7 +224,8 @@ class Conv1d(nn.Module):
         w = self.kernel().to(x.dtype)
         if self.time_major:
             x = x.transpose(1, 2)
-        pad = same_padding(x.shape[-1], self.k, self.stride, self.dilation)
+        pad = (same_padding(x.shape[-1], self.k, self.stride, self.dilation)
+               if self.padding == "SAME" else (0, 0))
         if pad != (0, 0):
             x = F.pad(x, pad)
         y = with_bias(F.conv1d, x, w, b, self.stride, 0, self.dilation, self.groups)

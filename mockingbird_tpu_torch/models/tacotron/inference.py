@@ -4,7 +4,9 @@ Port of ``mockingbird_tpu/models/tacotron/inference.py``: text buckets of 32,
 step buckets of 200, the stop rule with ``done_at``, and the trailing-silence
 trim at ``stop_threshold``. The decode loop runs in Python with the state on
 the device; it reads the stop flags back once per step, as the JAX while-loop
-tests them once per step.
+tests them once per step. ``synthesize_mels_device`` keeps the mels on the
+device for the fused pipeline; ``griffin_lim`` inverts a mel without a
+vocoder.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from ... import resolve_device, seeded
 from ...config import Config, sv2tts_audio_config
+from ...dsp import inv_mel_spectrogram, load_wav, melspectrogram
 from ...text import romanize, text_to_sequence
 from ...weights import load_flax, load_npz
 from .model import Tacotron, tacotron_config
@@ -149,3 +152,56 @@ class Synthesizer:
                 specs.append(mel)
                 aligns.append(attn[j])
         return (specs, aligns) if return_alignments else specs
+
+    def synthesize_mels_device(self, texts: List[str],
+                               embeddings: Union[np.ndarray, List[np.ndarray]],
+                               style_idx: int = 0, min_stop_token: int = 5,
+                               steps: int = 2000, r: int = 2):
+        """One padded batch → (mels (B, steps, M), frame lengths (B,)), both
+        on the device, for the fused pipeline. The mels are the whole
+        decode buffer: frames after the loop stopped stay zero. A frame
+        length is where the item first met the stop rule (``steps`` if it
+        never did)."""
+        if not self.is_loaded():
+            self.load()
+        embeddings = np.asarray(embeddings, np.float32)
+        if embeddings.ndim == 1:
+            embeddings = np.tile(embeddings, (len(texts), 1))
+        steps = _bucket(steps, 200)
+        style_mode = "token" if 0 <= style_idx < self.cfg.gst_token_num else "neutral"
+        mels, _, _, frame_lens = self.generate(
+            self._encode_texts(texts), torch.from_numpy(embeddings).to(self.device), steps, r,
+            max(style_idx, 0), style_mode, float(min_stop_token))
+        return mels, frame_lens
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def load_preprocess_wav(fpath) -> np.ndarray:
+        """Load a wav at 16 kHz and denoise it (LogMMSE, the noise profiled
+        on its first 0.2 s) when it is longer than 0.5 s."""
+        from ...dsp.logmmse import denoise, profile_noise
+        wav, _ = load_wav(fpath, target_sr=16000)
+        if len(wav) > 16000 * 0.5:
+            try:
+                profile = profile_noise(wav[: int(16000 * 0.2)], 16000)
+                wav = denoise(wav, profile)
+            except Exception:
+                pass
+        return wav
+
+    def make_spectrogram(self, fpath_or_wav) -> np.ndarray:
+        """A wav (or a path, loaded and denoised) → SV2TTS mel (M, T)."""
+        wav = (self.load_preprocess_wav(fpath_or_wav) if isinstance(fpath_or_wav, (str, Path))
+               else np.asarray(fpath_or_wav, np.float32))
+        return melspectrogram(torch.from_numpy(wav).to(self.device), self.audio_cfg).cpu().numpy().T
+
+    def griffin_lim(self, mel: np.ndarray, generator: Optional[torch.Generator] = None,
+                    angles: Optional[torch.Tensor] = None) -> np.ndarray:
+        """mel (M, T) → waveform by Griffin-Lim on the device; the initial
+        phase from ``generator`` (seeded with ``seed`` when not given) or
+        handed in as ``angles``."""
+        if generator is None and angles is None:
+            generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        mel_t = torch.from_numpy(np.ascontiguousarray(np.asarray(mel, np.float32).T))
+        return inv_mel_spectrogram(mel_t.to(self.device), self.audio_cfg, generator=generator,
+                                   angles=angles).cpu().numpy()

@@ -31,7 +31,7 @@ from ...config import Config
 from ...ops.monotonic_align import maximum_path
 from ...text import symbols as _symbols
 from ..layers import Conv1d, ConvTranspose1d, Dense, LayerNorm, dropout
-from ..vocoder.hifigan import LRELU_SLOPE, ResBlock1, ResBlock2
+from ..vocoder.hifigan import LRELU_SLOPE, ResBlock1, ResBlock2, upsample_valid
 from .modules import (
     ConvFlow, DDSConv, ElementwiseAffine, Flip, Log, ResidualCouplingLayer,
     TransformerEncoder, WN, generate_path, rand_slice_segments, sequence_mask,
@@ -134,8 +134,7 @@ class ResidualCouplingBlock(nn.Module):
 
 class VitsGenerator(nn.Module):
     """HiFi-GAN decoder with gin conditioning: z (B, T, C) → wav (B, T·hop).
-    Channels-first inside. flax's transposed conv is VALID (length
-    (T-1)·u + k) followed by the slice [off, off + T·u), off = u//2 + u%2."""
+    Channels-first inside; each transposed conv is ``upsample_valid``'s."""
 
     def __init__(self, cfg: Any):
         super().__init__()
@@ -162,11 +161,7 @@ class VitsGenerator(nn.Module):
         x = x.transpose(1, 2)                               # (B, C, T)
         n_k = len(c.resblock_kernel_sizes)
         for i, u in enumerate(c.upsample_rates):
-            x = F.leaky_relu(x, LRELU_SLOPE)
-            t_in = x.shape[-1]
-            x = getattr(self, f"ups_{i}")(x)
-            off = u // 2 + u % 2
-            x = x[..., off:off + t_in * u]
+            x = upsample_valid(getattr(self, f"ups_{i}"), F.leaky_relu(x, LRELU_SLOPE), u)
             xs = None
             for j in range(n_k):
                 y = getattr(self, f"resblock_{i}_{j}")(x)

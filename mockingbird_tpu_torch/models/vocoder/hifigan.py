@@ -1,22 +1,56 @@
-"""HiFi-GAN pieces that VITS uses: residual blocks and the period/scale
+"""HiFi-GAN: the generator, its residual blocks and the period/scale
 discriminators.
 
-Port of the parts of ``mockingbird_tpu/models/vocoder/hifigan.py`` the VITS
-decoder and discriminator are built from. They run channels-first (B, C, T)
-inside; a weight-normed conv is ``layers.Conv1d(weight_norm=True)`` with the
-flax layout's ``<name>_conv`` kernel and ``<name>`` gain. The HiFi-GAN
-``Generator`` and ``GanVocoder`` come with their own slice.
+Port of ``mockingbird_tpu/models/vocoder/hifigan.py``. The modules run
+channels-first (B, C, T) inside; a weight-normed conv is
+``layers.Conv1d(weight_norm=True)`` with the flax layout's ``<name>_conv``
+kernel and ``<name>`` gain. ``Generator`` takes and returns the JAX
+package's layout at its boundary: mel (B, T, 80) → wav (B, T·hop). The
+discriminators are the ones VITS trains with; HiFi-GAN's own trainer is not
+ported yet.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import Conv1d, Conv2d
+from ...config import Config
+from ..layers import Conv1d, Conv2d, ConvTranspose1d
 
 LRELU_SLOPE = 0.1
+
+
+def hifigan_config() -> Config:
+    """16 kHz config (``config_16k_.json``). The trained export's sidecar
+    (``saved_models/gan_run/vocoder_hifigan.json``) replaces it with rates
+    (8, 8, 4), kernels (16, 16, 8) and hop 256."""
+    return Config(
+        use_interpolation=False,   # True = the 24 kHz variant
+        resblock="1",
+        upsample_rates=[5, 5, 4, 2],
+        upsample_kernel_sizes=[10, 10, 8, 4],
+        upsample_initial_channel=512,
+        resblock_kernel_sizes=[3, 7, 11],
+        resblock_dilation_sizes=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+        num_mels=80,
+        segment_size=6400,
+        n_fft=1024,
+        hop_size=200,
+        win_size=800,
+        sample_rate=16000,
+        fmin=0.0,
+        fmax=7600.0,
+        fmax_for_loss=None,
+        learning_rate=2e-4,
+        adam_b1=0.8,
+        adam_b2=0.99,
+        lr_decay=0.999,
+        batch_size=16,
+        disc_start_step=0,
+    )
 
 
 def wn_conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, dilation: int = 1,
@@ -55,6 +89,61 @@ class ResBlock2(nn.Module):
         for i in range(self.n):
             x = getattr(self, f"convs_{i}")(F.leaky_relu(x, LRELU_SLOPE)) + x
         return x
+
+
+def upsample_valid(conv: ConvTranspose1d, x: torch.Tensor, u: int) -> torch.Tensor:
+    """flax's VALID transposed conv (length (T-1)·u + k) sliced to T·u
+    frames at ``u//2 + u%2``, as torch's ``ConvTranspose1d`` with that
+    padding and ``output_padding=u%2`` gives them."""
+    t_in = x.shape[-1]
+    off = u // 2 + u % 2
+    return conv(x)[..., off:off + t_in * u]
+
+
+class Generator(nn.Module):
+    """mel (B, T, 80) → wav (B, T·prod(rates)) in [-1, 1]. The mel is
+    transposed once at the entry; every layer after it is channels-first."""
+
+    def __init__(self, cfg: Any):
+        super().__init__()
+        c = self.cfg = cfg
+        ch0 = c.upsample_initial_channel
+        # the 24 kHz variant: a nearest-neighbour repeat and a VALID conv in
+        # place of each transposed conv
+        self.interp = bool(c.get("use_interpolation", False)
+                           or c.get("sample_rate", 16000) == 24000)
+        self.conv_pre = wn_conv(c.num_mels, ch0, 7)
+        res_cls = ResBlock1 if c.resblock == "1" else ResBlock2
+        for i, (u, k) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
+            ch_in, ch = ch0 // 2 ** i, ch0 // 2 ** (i + 1)
+            self.add_module(f"ups_{i}", Conv1d(ch_in, ch, k, weight_norm=True, time_major=False,
+                                               padding="VALID") if self.interp
+                            else ConvTranspose1d(ch_in, ch, k, u))
+            for j, (rk, rd) in enumerate(zip(c.resblock_kernel_sizes,
+                                             c.resblock_dilation_sizes)):
+                self.add_module(f"resblock_{i}_{j}", res_cls(ch, rk, tuple(rd)))
+        self.conv_post = wn_conv(ch0 // 2 ** len(c.upsample_rates), 1, 7)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        n_k = len(c.resblock_kernel_sizes)
+        x = self.conv_pre(mel.transpose(1, 2))                     # (B, C, T)
+        for i, (u, k) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
+            x = F.leaky_relu(x, LRELU_SLOPE)
+            ups = getattr(self, f"ups_{i}")
+            if self.interp:
+                p = (k - 1) // 2
+                x = ups(F.pad(x.repeat_interleave(u, dim=-1), (p, p)))
+            else:
+                x = upsample_valid(ups, x, u)
+            xs = None
+            for j in range(n_k):
+                y = getattr(self, f"resblock_{i}_{j}")(x)
+                xs = y if xs is None else xs + y
+            x = xs / n_k
+        # flax's default slope (0.01) here, not LRELU_SLOPE
+        x = self.conv_post(F.leaky_relu(x))
+        return torch.tanh(x)[:, 0]
 
 
 class DiscriminatorP(nn.Module):

@@ -56,6 +56,14 @@ class _Tree:
         return key in self.tree
 
     def leaf(self, key: str) -> np.ndarray:
+        head, _, rest = key.partition("/")
+        if key not in self.tree and rest and isinstance(self.tree.get(head), dict):
+            # an ``.npz`` export nests flax's "<n>_conv/kernel/scale" key by
+            # its slashes; the recorded path is the same either way
+            try:
+                return self.sub(head).leaf(rest)
+            except WeightMismatch:
+                pass
         if key not in self.tree or isinstance(self.tree[key], dict):
             raise WeightMismatch(f"missing leaf {self.path}/{key}")
         self.used.add(f"{self.path}/{key}")

@@ -92,3 +92,171 @@ def test_embed_reference_matches_jax(jax_side, tmp_path):
     ref = enc.embed_utterance(enc.preprocess_wav(REF_WAV))
     out = port_pipeline(jax_side, tmp_path).embed_reference(REF_WAV)
     np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the fused branch: Tacotron → HiFi-GAN on the device (small widths, f32
+# generator on both sides, prenet dropout off)
+# ---------------------------------------------------------------------------
+
+GAN = dict(upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8], upsample_initial_channel=32,
+           resblock_kernel_sizes=[3, 7], resblock_dilation_sizes=[[1, 3], [1, 3]],
+           segment_size=1600, hop_size=16)
+
+
+@pytest.fixture(scope="module")
+def fused(jax_side, tmp_path_factory):
+    """The JAX pipeline and the port's, both Tacotron → HiFi-GAN
+    (``half=False``) with the same weights."""
+    from mockingbird_tpu.config import sv2tts_audio_config as j_audio_cfg
+    from mockingbird_tpu.models.vocoder import GanVocoder as JGan
+    from mockingbird_tpu.pipeline import VoiceCloningPipeline as JPipe
+    from mockingbird_tpu_torch.models.vocoder import GanVocoder
+    enc, syn, _ = jax_side
+    jpipe = object.__new__(JPipe)
+    jpipe.encoder, jpipe.synthesizer, jpipe.synthesizer_kind = enc, syn, "tacotron"
+    jpipe.vocoder = JGan("hifigan", cfg=GAN, verbose=False, half=False)
+    jpipe.audio_cfg, jpipe._embed_cache = j_audio_cfg(), {}
+    tmp = tmp_path_factory.mktemp("fused")
+    np.savez(tmp / "encoder.npz", **flatten_tree(to_numpy(enc.params)))
+    np.savez(tmp / "synthesizer.npz", **flatten_tree(to_numpy(syn._variables)))
+    (tmp / "synthesizer.json").write_text(json.dumps(TACO))
+    voc = GanVocoder("hifigan", cfg=GAN, variables=to_numpy(jpipe.vocoder.params), half=False,
+                     verbose=False, device="cpu")
+    pipe = VoiceCloningPipeline(tmp / "encoder.npz", tmp / "synthesizer.npz", verbose=False,
+                                device="cpu", vocoder=voc)
+    return jpipe, pipe
+
+
+def _labels_of(pcm16):
+    """int16 mu-law PCM back to its 8-bit labels (the table is monotonic)."""
+    from mockingbird_tpu_torch.dsp import decode_mulaw8_to_int16
+    lut = decode_mulaw8_to_int16(np.arange(256, dtype=np.uint8)).astype(np.int32)
+    return np.searchsorted(lut, pcm16.astype(np.int32))
+
+
+def _hold_pcm(out, ref, fmt):
+    """Trim lengths equal; float32 within 1e-4; int16 within one step;
+    mulaw8-decoded int16 within one label (a last-bit difference of the
+    wave may cross a rounding boundary)."""
+    assert [o.shape for o in out] == [r.shape for r in ref]
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype == (np.float32 if fmt == "float32" else np.int16)
+        if fmt == "float32":
+            np.testing.assert_allclose(o, r, atol=1e-4, rtol=0)
+        elif fmt == "int16":
+            assert int(np.abs(o.astype(np.int32) - r).max(initial=0)) <= 1
+        else:
+            assert int(np.abs(_labels_of(o) - _labels_of(r)).max(initial=0)) <= 1
+
+
+@pytest.mark.parametrize("fmt", ["int16", "mulaw8", "float32"])
+def test_fused_tts_batch_matches_jax(fused, fmt):
+    """Three texts in chunks of 2 (so the last chunk holds one), one voice
+    from the reference wav."""
+    jpipe, pipe = fused
+    kw = dict(steps=60, batch_size=2, pcm_format=fmt, pcm16=fmt != "float32")
+    ref = jpipe.tts_batch(TEXTS, REF_WAV, **kw)
+    out = pipe.tts_batch(TEXTS, REF_WAV, **kw)
+    assert all(len(o) > 0 and len(o) % 16 == 0 for o in out)
+    _hold_pcm(out, ref, fmt)
+
+
+def _voices(seed=0):
+    rng = np.random.RandomState(seed)
+    embeds = rng.randn(len(TEXTS), 256).astype(np.float32)
+    return embeds / np.linalg.norm(embeds, axis=1, keepdims=True)
+
+
+def test_fused_tts_batch_per_text_voices_match_jax(fused):
+    """A (B, 256) ``embed``: one voice per text, no reference wav. With
+    these voices the stop scores (×10) of the three items sit near 5.04,
+    4.95 rising and 4.77, so ``min_stop_token`` 4.95 stops them at
+    different steps (margins of 2e-4 and more): the trim lengths differ."""
+    jpipe, pipe = fused
+    embeds = _voices()
+    kw = dict(steps=60, batch_size=2, min_stop_token=4.95, embed=embeds)
+    ref = jpipe.tts_batch(TEXTS, None, **kw)
+    out = pipe.tts_batch(TEXTS, None, **kw)
+    _hold_pcm(out, ref, "int16")
+    assert len({len(o) for o in out}) == 3, [len(o) for o in out]
+    # a (256,) embed is tiled: text 1 in voice 0 differs from text 1 in voice 1
+    tiled = pipe.tts_batch(TEXTS, None, steps=60, batch_size=2, embed=embeds[0])
+    assert len(tiled[1]) != len(out[1]) or not np.array_equal(tiled[1], out[1])
+    with pytest.raises(AssertionError, match="per-text embeds"):
+        pipe.tts_batch(TEXTS, None, steps=60, embed=embeds[:2])
+
+
+def test_synthesize_mels_device_matches_jax(fused):
+    """The whole (B, steps, M) decode buffer and the per-item frame lengths;
+    with ``min_stop_token`` 4.75 every item stops at the first step the
+    rule allows, so the frames after it stay zero."""
+    jpipe, pipe = fused
+    embeds = _voices()
+    ref_mels, ref_lens = jpipe.synthesizer.synthesize_mels_device(TEXTS, embeds, steps=60,
+                                                                  min_stop_token=4.75)
+    mels, lens = pipe.synthesizer.synthesize_mels_device(TEXTS, embeds, steps=60,
+                                                         min_stop_token=4.75)
+    assert tuple(mels.shape) == ref_mels.shape == (3, 200, 80)
+    np.testing.assert_array_equal(lens.numpy(), np.asarray(ref_lens))
+    assert lens.tolist() == [14, 14, 14]
+    assert not mels[:, 14:].any() and mels[:, :14].abs().min() > 0
+    np.testing.assert_allclose(mels.numpy(), np.asarray(ref_mels), atol=1e-4, rtol=0)
+
+
+def test_clone_voice_long_matches_jax(fused):
+    """Numbers read out, split at punctuation, chunks of at most 40
+    characters, joined by silences: the same chunks and lengths, samples
+    within one int16 step."""
+    from mockingbird_tpu.text.long_text import normalize_text as j_norm, split_text as j_split
+    from mockingbird_tpu_torch.text.long_text import normalize_text, split_text
+    jpipe, pipe = fused
+    text = "你好，今天是2024年。hello world, this is a test! ni3 hao3; 第3章，共128页"
+    assert normalize_text(text) == j_norm(text)
+    for max_chars in (10, 40, 140):
+        assert split_text(normalize_text(text), max_chars) == j_split(j_norm(text), max_chars)
+    ref = jpipe.clone_voice_long(text, REF_WAV, max_chars=40, steps=60)
+    out = pipe.clone_voice_long(text, REF_WAV, max_chars=40, steps=60)
+    assert out.dtype == np.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=1.01 / 32767, rtol=0)
+
+
+def test_griffin_lim_and_tts_to_file(fused, tmp_path):
+    """``clone_voice(use_griffin_lim=True)`` and ``tts_to_file`` (short text
+    through ``clone_voice``, long text through ``clone_voice_long``) run on
+    the port and write what they synthesise."""
+    from mockingbird_tpu_torch.dsp import load_wav
+    _, pipe = fused
+    hop = pipe.audio_cfg.hop_size
+    specs = pipe.synthesizer.synthesize_spectrograms(TEXTS[:1], np.tile(
+        pipe.embed_reference(REF_WAV), (1, 1)), steps=60)
+    (gl,) = pipe.clone_voice(TEXTS[:1], REF_WAV, steps=60, use_griffin_lim=True)
+    assert gl.shape == ((specs[0].shape[1] - 1) * hop,) and np.isfinite(gl).all()
+    for text, name in ((TEXTS[2], "short.wav"), ("hello world. " * 12, "long.wav")):
+        rtf = pipe.tts_to_file(text, REF_WAV, tmp_path / name, steps=60)
+        wav, sr = load_wav(tmp_path / name)
+        assert sr == 16000 and rtf > 0 and len(wav) > 0
+    rtf = pipe.tts_to_file(TEXTS[2], REF_WAV, tmp_path / "gl.wav", steps=60,
+                           use_griffin_lim=True)
+    (gl2,) = pipe.clone_voice(TEXTS[2], REF_WAV, steps=60, use_griffin_lim=True)
+    assert rtf > 0 and len(load_wav(tmp_path / "gl.wav")[0]) == len(gl2)
+
+
+def test_vits_pipeline_routes_to_vits():
+    """``synthesizer="vits"`` builds the port's ``VitsSynthesizer``;
+    ``clone_voice`` returns its ``synthesize`` output and ``tts_batch`` (the
+    staged branch) its int16 quantisation, warning that ``pcm_format`` did
+    not apply."""
+    from test_torch_vits import SMALL as VITS_SMALL
+    from mockingbird_tpu_torch.models.vits import VitsSynthesizer
+    pipe = VoiceCloningPipeline(synthesizer="vits", verbose=False, device="cpu")
+    assert isinstance(pipe.synthesizer, VitsSynthesizer)
+    pipe.synthesizer = VitsSynthesizer(cfg=VITS_SMALL, verbose=False, seed=1, device="cpu")
+    want = pipe.synthesizer.synthesize(TEXTS[:2])
+    got = pipe.clone_voice(TEXTS[:2], REF_WAV)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    with pytest.warns(UserWarning, match="mulaw8"):
+        pcm = pipe.tts_batch(TEXTS[:2], REF_WAV, pcm_format="mulaw8")
+    for p, w in zip(pcm, want):
+        np.testing.assert_array_equal(p, np.round(np.clip(w, -1, 1) * 32767).astype(np.int16))
