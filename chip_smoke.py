@@ -26,16 +26,29 @@ Phases, each printing its elapsed seconds:
      one Fre-GAN call at its stock config, and one
      ``VoiceCloningPipeline(synthesizer="vits").tts_batch`` call. No kernel
      is launched on this path;
-  5. VITS serving: ``VitsSynthesizer`` at the width of
+  5. PPG one-shot voice conversion: ``make_voice_converter()`` at
+     ``ppg_config()`` and the width of ``saved_models/ppg_run/ppg2mel.json``,
+     seeded weights, the reference set from ``ground_truth.wav``, HiFi-GAN
+     as in 4. Run A is ``bench.py``'s ``bench_ppg_vc`` workload where its
+     sample recording is absent (8 crops of a 3 s 220 Hz tone), run B 8
+     utterance-length sources (the reference wav tiled to 4.0-7.5 s: 400
+     decode steps over a 192-group memory), both at ``stop_threshold`` 2.0:
+     ``convert_wavs`` timed warm, then by stage (extract, host f0, encode,
+     decode loop with the card's busy share, postnet, vocode). Then the
+     f32 extractor (on run B's speech; run A's pure tone is shown beside
+     the CPU's own f32-against-f64 spread, not held) and the teacher-forced
+     decoder on the card against the CPU, and ``convert_files`` through
+     HiFi-GAN into a temp dir, every wav read back. No kernel is launched;
+  6. VITS serving: ``VitsSynthesizer`` at the width of
      ``saved_models/vits_run/config.json``, seeded weights, the three texts,
      ``max_frames`` 1000, float and int16 output, a warm pass by stage;
-  6. VITS training: ``train`` for ``TRAIN_STEPS`` steps of batch 16 in bf16
+  7. VITS training: ``train`` for ``TRAIN_STEPS`` steps of batch 16 in bf16
      on a synthetic dataset whose one bucket is (900, 1000] frames with
      texts of 100-160 symbols, so the alignment search runs at its largest
      training shape (T_y 1000, T_x 160); the checkpoint it writes loads
      back; then the trainer's own step (``make_vits_step``) timed by part
      through module and optimizer hooks;
-  7. each kernel held against its plain PyTorch version on the card, with
+  8. each kernel held against its plain PyTorch version on the card, with
      the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
      (its fold-major layout) on the TTS path's own inputs, then timed at
      one utterance's folds and at 4 folds per SM, with the launch plan, the
@@ -43,7 +56,7 @@ Phases, each printing its elapsed seconds:
      (alignment search, exactly equal) on the training step's own inputs
      and on ragged, tied and band-less cases, timed per call with CUDA
      events, the kernel's own device time from a profiler trace beside it;
-  8. one ``kernels`` JSON line, then the contract line
+  9. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
 Every path is timed under PyTorch's defaults, which is what a caller of the
@@ -76,7 +89,8 @@ from mockingbird_tpu_torch.models.vits.model import vits_config
 from mockingbird_tpu_torch.models.vits.train import (BUCKET_BOUNDARIES, BucketBatcher,
                                                      VitsDataset, make_optimizer, make_vits_step,
                                                      to_device)
-from mockingbird_tpu_torch.dsp import decode_mulaw8_to_int16
+from mockingbird_tpu_torch.dsp import decode_mulaw8_to_int16, load_wav, save_wav
+from mockingbird_tpu_torch.models.ppg import MelDecoderMOLv2, PPGExtractor
 from mockingbird_tpu_torch.models.vocoder import GanVocoder, WaveRnnVocoder
 from mockingbird_tpu_torch.models.vocoder import wavernn as wavernn_module
 from mockingbird_tpu_torch.ops import build
@@ -84,7 +98,7 @@ from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_pat
                                                        maximum_path_plain)
 from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, plan, resident_blocks,
                                                       wavernn_sample, wavernn_sample_plain)
-from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
+from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline, make_voice_converter
 from mockingbird_tpu_torch.text import text_to_sequence
 from mockingbird_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -94,6 +108,7 @@ TACOTRON_JSON = ROOT / "saved_models/attention_run/synthesizer.json"
 WAVERNN_JSON = ROOT / "saved_models/wavernn_run/vocoder_wavernn.json"
 VITS_JSON = ROOT / "saved_models/vits_run/config.json"
 GAN_JSON = ROOT / "saved_models/gan_run/vocoder_hifigan.json"
+PPG_JSON = ROOT / "saved_models/ppg_run/ppg2mel.json"
 TEXTS = ["this voice was cloned from a short reference recording",
          "欢迎使用语音克隆，今天天气很好",
          "ni3 hao3, zhe4 shi4 yi2 ge4 ce4 shi4"]
@@ -115,6 +130,11 @@ BENCH_STEPS = 400
 BENCH_MIN_STOP = 11
 BENCH_CHUNK = 32
 GAN_CFG: dict = {}           # overrides of the committed sidecar (none on the card)
+# PPG voice conversion: bench.py's bench_ppg_vc batch, and utterance-length
+# sources of 4.0 to 7.5 s (800 decode frames over a 192-group memory)
+VC_BATCH = 8
+VC_REPS = 3
+VC_B_SECONDS = tuple(4.0 + 0.5 * i for i in range(8))
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -571,6 +591,184 @@ def phase_hifigan_tts(dev):
 
 
 # ---------------------------------------------------------------------------
+# PPG one-shot voice conversion
+# ---------------------------------------------------------------------------
+
+def vc_sources_a() -> list:
+    """``bench.py``'s ``bench_ppg_vc`` workload where its sample recording is
+    absent: a 3 s 220 Hz tone at 16 kHz, ``VC_BATCH`` crops of half its
+    length at offsets of n/16."""
+    t = np.arange(16000 * 3) / 16000
+    wav = (0.4 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    n = len(wav)
+    return [wav[int(i * n / (2 * VC_BATCH)): int(i * n / (2 * VC_BATCH)) + n // 2]
+            for i in range(VC_BATCH)]
+
+
+def vc_sources_b(seed: int = 0) -> list:
+    """Utterance-length sources: ``ground_truth.wav`` tiled from a seeded
+    offset to each of ``VC_B_SECONDS``."""
+    ref, _ = load_wav(REF_WAV, target_sr=16000)
+    rng = np.random.RandomState(seed)
+    out = []
+    for sec in VC_B_SECONDS:
+        n, off = int(sec * 16000), rng.randint(len(ref))
+        out.append(np.tile(ref, (n + off) // len(ref) + 1)[off : off + n])
+    return out
+
+
+def run_vc(name: str, vc, voc, srcs, dev) -> dict:
+    """One workload through ``convert_wavs``: a warm-up, ``VC_REPS`` timed
+    calls (audio seconds per wall second as ``bench.py``'s ``value``, and
+    the reference's RTF convention), then one warm pass by stage, the
+    decode loop's device busy share and the peak device memory."""
+    zero_counts()
+    mels = vc.convert_wavs(srcs, stop_threshold=2.0)                    # warm
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for _ in range(VC_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mels = vc.convert_wavs(srcs, stop_threshold=2.0)
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = read_counts()
+    audio_s = 0.01 * sum(len(m) for m in mels)
+    for src, mel in zip(srcs, mels):
+        check(mel.shape[1] == 80 and bool(np.isfinite(mel).all()), f"{name}: mel {mel.shape}")
+        check(len(mel) == (len(src) // 160 + 1) // 4 * 4,
+              f"{name}: {len(mel)} frames for {len(src)} samples")
+    st = Stages()
+    ppgs = st("extract", lambda: vc.extractor.extract_from_wavs(srcs))
+    lf0s = st("f0/lf0 (host)", lambda: vc.lf0s(srcs))
+    batch = vc.batch(ppgs, lf0s)
+    memory = st("encode_inputs", lambda: vc.encode(batch))
+    ns = batch["ns"]
+    max_steps = max(((max(ns) + 99) // 100) * 100, 200)
+
+    def decode():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return vc.decode(memory, batch["mem_mask"], max_steps, 2.0, gen)
+
+    raw, frames, steps = st("decode loop", decode)
+    with torch.no_grad():
+        post = st("postnet", lambda: vc.model.postnet_apply(raw)).cpu().numpy()
+    staged = [post[i, : min(int(frames[i]), ns[i])] for i in range(len(srcs))]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(staged, mels))
+    check(err <= 1e-4, f"{name}: the staged pass differs from convert_wavs by {err}")
+    wavs = st("vocode (HiFi-GAN, bf16)", lambda: voc.infer_waveform_batch([m.T for m in mels]))
+    check(all(len(w) == len(m) * voc.cfg.hop_size and bool(np.isfinite(w).all())
+              for w, m in zip(wavs, mels)), f"{name}: vocoded lengths")
+    wall = float(np.median(walls))
+    print(f"  {name}: batch {len(srcs)} padded to {batch['ppg'].shape[0]}, memory "
+          f"{batch['mem_mask'].shape[1]} groups, {steps} decode steps, {audio_s:.2f} s of "
+          f"audio ({sum(len(m) for m in mels)} frames)")
+    print(f"  convert_wavs: {', '.join(f'{w:.4f}' for w in walls)} s; value (audio s per "
+          f"wall s) {audio_s / wall:.2f}, rtf_reference_convention {wall / audio_s:.4f}; "
+          f"peak device memory {peak / 2**30:.3f} GiB ({tf32_state()})")
+    st.show()
+    print(f"  decode loop {st.s['decode loop'] / steps * 1e3:.3f} ms per step; "
+          + device_split(decode))
+    print(f"  launches on the PPG-VC path: {launches} (the path needs no kernel)")
+    check(not any(launches.values()), f"a kernel launched on the PPG-VC path: {launches}")
+    return dict(steps=steps, groups=batch["mem_mask"].shape[1])
+
+
+def phase_ppg_vc(dev, tmp: Path):
+    with Phase("PPG voice conversion: make_voice_converter, full width"):
+        vc = make_voice_converter(verbose=False, seed=0, device=dev)
+        check_config("ppg2mel", vc.cfg, PPG_JSON)
+        voc = GanVocoder("hifigan", cfg=dict(Config.from_json(GAN_JSON), **GAN_CFG),
+                         verbose=False, seed=0, device=dev)
+        print(f"  extractor {sum(p.numel() for p in vc.extractor.model.parameters())} "
+              f"parameters ({vc.extractor.cfg.num_blocks} blocks of "
+              f"{vc.extractor.cfg.output_size}), ppg2mel "
+              f"{sum(p.numel() for p in vc.model.parameters())}, HiFi-GAN "
+              f"{sum(p.numel() for p in voc.model.parameters())} in bf16; seeded weights")
+        vc.set_reference(REF_WAV)
+        check(vc.ref_embed.shape == (256,) and abs(np.linalg.norm(vc.ref_embed) - 1) < 1e-4,
+              "reference d-vector")
+        print(f"  reference: lf0 mean {vc.ref_lf0_mean:.4f}, std {vc.ref_lf0_std:.4f}")
+        srcs_a, srcs_b = vc_sources_a(), vc_sources_b()
+        run_vc("run A (bench.py's bench_ppg_vc, tone)", vc, voc, srcs_a, dev)
+        shape = run_vc("run B (4.0 to 7.5 s)", vc, voc, srcs_b, dev)
+        check(shape == dict(steps=400, groups=192),
+              f"run B ran {shape}, not 400 steps over 192 groups")
+
+    with Phase("PPG voice conversion: f32 on the card against the CPU, convert_files"):
+        cpu_x = PPGExtractor(cfg=dict(vc.extractor.cfg), verbose=False, device="cpu")
+        cpu_x.model.load_state_dict({k: v.cpu() for k, v in
+                                     vc.extractor.model.state_dict().items()})
+
+        def diff(a, b):
+            return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+        def card_vs_cpu(srcs):
+            want = cpu_x.extract_from_wavs(srcs)
+            with full_f32():
+                err = diff(vc.extractor.extract_from_wavs(srcs), want)
+            return want, err, diff(vc.extractor.extract_from_wavs(srcs), want)
+
+        _, err, tf32 = card_vs_cpu(srcs_b)
+        print(f"  extractor on run B's speech: max |card - cpu| = {err:.3g} with TF32 off "
+              f"(tolerance 1e-4); under the defaults {tf32:.3g}")
+        check(err <= 1e-4, f"the extractor on the card differs from the CPU by {err}")
+        # run A's pure tone leaves most mel bins at the f32 DFT's rounding
+        # noise, where log(mel + 1e-20) is decided by the order of the sums:
+        # not held, shown beside the CPU's own f32-against-f64 spread
+        want, err, tf32 = card_vs_cpu(srcs_a)
+        wav = np.zeros((len(srcs_a), max(3200, -(-len(srcs_a[0]) // 16000) * 16000)))
+        wav[:, : len(srcs_a[0])] = np.stack(srcs_a)
+        with torch.no_grad():
+            exact = cpu_x.model.double()(torch.from_numpy(wav),
+                                         torch.as_tensor([len(x) for x in srcs_a])).numpy()
+        spread = diff(want, [exact[i, : len(w)] for i, w in enumerate(want)])
+        print(f"  extractor on run A's tone: max |card - cpu| = {err:.3g} with TF32 off, under "
+              f"the defaults {tf32:.3g}; the CPU's own f32 against f64 {spread:.3g} (not held: "
+              f"f32 cannot decide the log-mel bins a pure tone leaves empty)")
+        cfg = Config(vc.cfg).merge(dict(prenet_always_dropout=False))
+        card_m = MelDecoderMOLv2(cfg).to(dev).eval()
+        card_m.load_state_dict(vc.model.state_dict())
+        cpu_m = MelDecoderMOLv2(cfg).eval()
+        cpu_m.load_state_dict({k: v.cpu() for k, v in vc.model.state_dict().items()})
+        rng = np.random.RandomState(0)
+        b, t = 2, 128
+        lengths = np.array([128, 93])
+        inputs = [rng.randn(b, t, cfg["bottle_neck_feature_dim"]).astype(np.float32), lengths,
+                  (rng.randn(b, t, 80) * 2).astype(np.float32), lengths,
+                  np.stack([rng.randn(b, t) + 5, rng.rand(b, t) > 0.3], -1).astype(np.float32),
+                  rng.randn(b, 256).astype(np.float32)]
+        with torch.no_grad():
+            want = cpu_m(*(torch.from_numpy(x) for x in inputs))
+            with full_f32():
+                got = card_m(*(torch.from_numpy(x).to(dev) for x in inputs))
+            tf32 = card_m(*(torch.from_numpy(x).to(dev) for x in inputs))
+        err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        err_tf32 = max(float((g.cpu() - w).abs().max()) for g, w in zip(tf32, want))
+        print(f"  teacher-forced decoder, batch {b} x {t} frames: max |card - cpu| = {err:.3g} "
+              f"with TF32 off (tolerance 1e-4); under the defaults {err_tf32:.3g}")
+        check(err <= 1e-4, f"the decoder on the card differs from the CPU by {err}")
+
+        src_dir = tmp / "vc_src"
+        src_dir.mkdir()
+        paths = []
+        for i, w in enumerate(srcs_a):
+            paths.append(src_dir / f"src{i}.wav")
+            save_wav(w, paths[-1], 16000)
+        expect = vc.convert_wavs([load_wav(p, target_sr=16000)[0] for p in paths])
+        zero_counts()
+        vc.convert_files(paths, tmp / "vc_out", vocoder=voc)
+        check(not any(read_counts().values()), "a kernel launched in convert_files")
+        for p, mel in zip(paths, expect):
+            wav, sr = load_wav(tmp / "vc_out" / f"vc_{p.stem}.wav")
+            check(sr == 16000 and len(wav) == len(mel) * voc.cfg.hop_size
+                  and bool(np.isfinite(wav).all()), f"convert_files output {p.stem}: "
+                  f"{len(wav)} samples at {sr} Hz for {len(mel)} frames")
+        print(f"  convert_files through HiFi-GAN: {len(paths)} wavs of "
+              f"{[len(m) * voc.cfg.hop_size for m in expect]} samples written and read back")
+
+
+# ---------------------------------------------------------------------------
 # VITS serving and training
 # ---------------------------------------------------------------------------
 
@@ -991,6 +1189,8 @@ def main() -> int:
 
     pipe, captured, tts_launches = phase_tts(dev)
     phase_hifigan_tts(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_ppg_vc(dev, Path(tmp))
     phase_vits_serve(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train_inputs, train_launches = phase_vits_train(dev, Path(tmp))

@@ -1,1 +1,2 @@
-"""Models of the voice-cloning path: GE2E encoder, Tacotron, WaveRNN."""
+"""Models of the voice-cloning paths: GE2E encoder, Tacotron, the vocoders,
+VITS and PPG voice conversion."""

@@ -15,7 +15,7 @@ training runs through it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -150,14 +150,21 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm(epsilon=1e-5)`` over the last axis."""
+    """flax ``nn.LayerNorm(epsilon=eps)`` over the last axis."""
 
-    def __init__(self, features: int):
-        super().__init__(features, eps=1e-5)
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = promote(x, self.weight, self.bias)
         return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """flax ``nn.BatchNorm`` (epsilon 1e-5) over the last axis of (B, T, C)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
 
 
 def weight_norm(v: torch.Tensor, scale: torch.Tensor, out_dim: int) -> torch.Tensor:
@@ -190,15 +197,16 @@ def same_padding(t: int, k: int, stride: int = 1, dilation: int = 1) -> Tuple[in
 
 
 class Conv1d(nn.Module):
-    """flax ``nn.Conv`` over one axis with ``padding="SAME"`` (or
-    ``"VALID"``), optionally wrapped in flax ``nn.WeightNorm``. ``weight`` is
+    """flax ``nn.Conv`` over one axis with ``padding="SAME"``, ``"VALID"`` or
+    explicit ``(low, high)`` pads, optionally wrapped in flax ``nn.WeightNorm``. ``weight`` is
     in torch's (out, in/groups, k) layout; a weight-normed conv keeps it as
     the direction and ``scale`` (out,) as the gain, initialised to 1 as flax
     does. Takes (B, T, C) when ``time_major``, else (B, C, T)."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1, dilation: int = 1,
                  groups: int = 1, bias: bool = True, weight_norm: bool = False,
-                 time_major: bool = True, zero_init: bool = False, padding: str = "SAME"):
+                 time_major: bool = True, zero_init: bool = False,
+                 padding: Union[str, Tuple[int, int]] = "SAME"):
         super().__init__()
         conv = nn.Conv1d(in_ch, out_ch, k, stride=stride, dilation=dilation, groups=groups,
                          bias=bias)
@@ -224,8 +232,10 @@ class Conv1d(nn.Module):
         w = self.kernel().to(x.dtype)
         if self.time_major:
             x = x.transpose(1, 2)
-        pad = (same_padding(x.shape[-1], self.k, self.stride, self.dilation)
-               if self.padding == "SAME" else (0, 0))
+        if self.padding == "SAME":
+            pad = same_padding(x.shape[-1], self.k, self.stride, self.dilation)
+        else:
+            pad = (0, 0) if self.padding == "VALID" else tuple(self.padding)
         if pad != (0, 0):
             x = F.pad(x, pad)
         y = with_bias(F.conv1d, x, w, b, self.stride, 0, self.dilation, self.groups)

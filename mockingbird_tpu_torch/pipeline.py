@@ -10,6 +10,8 @@ through ``clone_voice``. Weights come from ``.npz`` exports of the JAX
 package's param trees, or from ``seed`` when no path is given; a path that
 does not exist raises ``FileNotFoundError``. A vocoder object passed as
 ``vocoder`` is used as it is, in place of one loaded from ``vocoder_fpath``.
+``make_voice_converter`` builds the PPG one-shot voice-conversion path
+(``models.ppg.VoiceConverter``).
 """
 from __future__ import annotations
 
@@ -181,3 +183,12 @@ class VoiceCloningPipeline:
         dt = time.time() - t0
         save_wav(wav, out_path, self.audio_cfg.sample_rate)
         return len(wav) / self.audio_cfg.sample_rate / dt
+
+
+def make_voice_converter(ppg2mel_fpath: Optional[Union[str, Path]] = None,
+                         verbose: bool = True, device: Union[str, torch.device] = "cuda",
+                         seed: int = 0):
+    """The PPG one-shot voice-conversion pipeline (``VoiceConverter``):
+    ppg2mel weights from an ``.npz`` export, or from ``seed`` without one."""
+    from .models.ppg import VoiceConverter
+    return VoiceConverter(ppg2mel_fpath, verbose=verbose, seed=seed, device=device)

@@ -8,6 +8,9 @@ torch module tree maps every leaf; only the layouts differ:
 
   * flax ``Dense`` kernels are (in, out), ``nn.Linear`` weights (out, in);
   * flax convolutions are time-major: (k, in, out) and (kh, kw, in, out);
+    a depthwise conv's (k, 1, C) becomes torch's (C, 1, k) by the same
+    move of axes, whatever its padding or stride;
+  * a module's own parameters (the attention's ``pos_bias_u``) by name;
   * GRU gates r, z, n (flax ``ir/iz/in`` + ``hr/hz/hn``, biases on the input
     gates and ``hn``), fused into (in, 3h) / (h, 3h) blocks;
   * LSTM gates i, f, g, o (flax ``ii..io`` + ``hi..ho``, biases on the hidden

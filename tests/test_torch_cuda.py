@@ -1,6 +1,7 @@
 """The hand-written kernels against their plain versions on a CUDA card:
 the WaveRNN sampler (both conditioning layouts) and monotonic alignment
-search.
+search; and the voice-conversion models (no kernel) in f32 on the card
+against the same models on the CPU.
 
 These tests need the card and skip without one. On the card's machine (no
 JAX there, so without the JAX-side conftest) they run as
@@ -289,3 +290,60 @@ def test_mas_wrapper_and_checks(card):
         maximum_path_cuda(nc[0], tys, txs)
     with pytest.raises(ValueError, match="lengths"):
         maximum_path_cuda(nc, tys[:2], txs)
+
+
+PPG_SMALL = dict(output_size=24, attention_heads=2, linear_units=48, num_blocks=2, cnn_kernel=7)
+P2M_SMALL = dict(encoder_dim=32, attention_rnn_dim=32, decoder_rnn_dim=32, prenet_dims=[32, 16],
+                 bottle_neck_feature_dim=24, num_mels=20)
+
+
+def _random_bn_stats(model, rng):
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.copy_(torch.from_numpy(rng.randn(m.num_features) * 0.2))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, m.num_features)))
+
+
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_ppg_extractor_on_card_matches_cpu(card, width):
+    """Seeded f32 extractor, random BatchNorm statistics, two wavs of
+    different lengths: the card (TF32 off) within 1e-4 of the CPU."""
+    from mockingbird_tpu_torch.models.ppg import PPGExtractor
+    cfg = PPG_SMALL if width == "small" else {}
+    cpu = PPGExtractor(cfg=cfg, verbose=False, device="cpu")
+    _random_bn_stats(cpu.model, np.random.RandomState(0))
+    gpu = PPGExtractor(cfg=cfg, verbose=False, device=card)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    rng = np.random.RandomState(1)
+    wavs = [(0.3 * rng.randn(n)).astype(np.float32) for n in (37_000, 12_345)]
+    for g, c in zip(gpu.extract_from_wavs(wavs), cpu.extract_from_wavs(wavs)):
+        assert g.shape == c.shape
+        np.testing.assert_allclose(g, c, atol=1e-4)
+
+
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_ppg2mel_teacher_forced_on_card_matches_cpu(card, width):
+    """Seeded f32 ``MelDecoderMOLv2``, prenet dropout off, random BatchNorm
+    statistics, ragged lengths: every output of the teacher-forced forward
+    on the card (TF32 off) within 1e-4 of the CPU."""
+    from mockingbird_tpu_torch.models.ppg.ppg2mel import MelDecoderMOLv2, ppg2mel_config
+    cfg = ppg2mel_config().merge(P2M_SMALL if width == "small" else {}).merge(
+        dict(prenet_always_dropout=False))
+    torch.manual_seed(0)
+    cpu = MelDecoderMOLv2(cfg).eval()
+    _random_bn_stats(cpu, np.random.RandomState(2))
+    gpu = MelDecoderMOLv2(cfg).to(card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(3)
+    b, t = 3, 96
+    lengths = np.array([96, 70, 41])
+    inputs = [rng.randn(b, t, cfg.bottle_neck_feature_dim).astype(np.float32), lengths,
+              rng.randn(b, t, cfg.num_mels).astype(np.float32), lengths,
+              np.stack([rng.randn(b, t) + 5, rng.rand(b, t) > 0.3], -1).astype(np.float32),
+              rng.randn(b, cfg.spk_embed_dim).astype(np.float32)]
+    with torch.no_grad():
+        want = cpu(*(torch.from_numpy(x) for x in inputs))
+        got = gpu(*(torch.from_numpy(x).to(card) for x in inputs))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4)

@@ -162,19 +162,26 @@ def test_sampler_refuses_other_devices():
         wavernn_sample({}, t, t, 0)
 
 
-@pytest.mark.parametrize("entry", ["encoder", "synthesizer", "wavernn"])
+@pytest.mark.parametrize("entry", ["encoder", "synthesizer", "wavernn", "ppg2mel",
+                                   "ppg_extractor", "make_voice_converter"])
 def test_missing_weights_path_raises(entry, tmp_path):
     """A weights path that does not exist raises ``FileNotFoundError`` in
     every constructor that takes one (a typo must not give seeded noise);
     weights made from a seed come only from passing no path."""
+    from mockingbird_tpu_torch.models.ppg import PPGExtractor, VoiceConverter
     from mockingbird_tpu_torch.models.tacotron import Synthesizer
     from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder
-    from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
+    from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline, make_voice_converter
     missing = tmp_path / "missing.npz"
     make = {"encoder": lambda p: VoiceCloningPipeline(encoder_fpath=p, vocoder=object(),
                                                        verbose=False, device="cpu"),
             "synthesizer": lambda p: Synthesizer(p, verbose=False, device="cpu"),
-            "wavernn": lambda p: WaveRnnVocoder(p, verbose=False, device="cpu")}[entry]
+            "wavernn": lambda p: WaveRnnVocoder(p, verbose=False, device="cpu"),
+            "ppg2mel": lambda p: VoiceConverter(p, extractor=object(), encoder=object(),
+                                                verbose=False, device="cpu"),
+            "ppg_extractor": lambda p: PPGExtractor(p, verbose=False, device="cpu"),
+            "make_voice_converter": lambda p: make_voice_converter(p, verbose=False,
+                                                                   device="cpu")}[entry]
     with pytest.raises(FileNotFoundError, match="missing.npz"):
         make(missing)
     with pytest.raises(FileNotFoundError):
@@ -298,3 +305,56 @@ def test_load_vocoder_dispatch(tmp_path):
         with pytest.raises(FileNotFoundError):
             load_vocoder(tmp_path / name, verbose=False, device="cpu")
     assert inspect.signature(GanVocoder).parameters["device"].default == "cuda"
+
+
+def test_vc_entry_points_default_to_cuda(monkeypatch):
+    """The voice-conversion entry points ask for ``cuda`` by default and
+    raise without a card."""
+    from mockingbird_tpu_torch.models.ppg import PPGExtractor, VoiceConverter
+    from mockingbird_tpu_torch.pipeline import make_voice_converter
+    entries = (VoiceConverter, PPGExtractor, make_voice_converter)
+    for fn in entries:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in entries:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+
+
+def test_port_modules_of_the_vc_path_are_guarded():
+    """The modules this guard file's import test walks include every module
+    of the voice-conversion path."""
+    names = set(_modules())
+    for name in ("models.ppg", "models.ppg.extractor", "models.ppg.ppg2mel",
+                 "models.ppg.convert", "dsp.f0"):
+        assert f"mockingbird_tpu_torch.{name}" in names, name
+
+
+def test_ppg2mel_export_carries_across(tmp_path):
+    """The committed trained ppg2mel export carries across into the
+    full-width ``MelDecoderMOLv2`` (the width of its ``.json`` sidecar) with
+    no missing or extra leaf, straight and through an ``.npz``; the strided
+    convs and the postnet's BatchNorm statistics land where the flax tree
+    has them."""
+    from mockingbird_tpu_torch.config import Config
+    from mockingbird_tpu_torch.models.ppg import VoiceConverter
+    from mockingbird_tpu_torch.models.ppg.ppg2mel import MelDecoderMOLv2, ppg2mel_config
+    from mockingbird_tpu_torch.weights import flatten_tree, load_flax
+    cfg = ppg2mel_config().merge(Config.from_json(ROOT / "saved_models/ppg_run/ppg2mel.json"))
+    assert cfg == ppg2mel_config()
+    tree = _export("ppg_run/ppg2mel.ckpt")
+    model = load_flax(MelDecoderMOLv2(cfg), tree)
+    np.testing.assert_array_equal(model.postnet.bn_out.running_var.numpy(),
+                                  np.asarray(tree["batch_stats"]["postnet"]["bn_out"]["var"],
+                                             np.float32))
+    # flax's stride-2 conv kernel (k, in, out) → torch's (out, in, k)
+    np.testing.assert_array_equal(
+        model.bnf_prenet.down_1.weight.detach().numpy(),
+        np.transpose(np.asarray(tree["params"]["bnf_prenet"]["down_1"]["kernel"], np.float32),
+                     (2, 1, 0)))
+    np.savez(tmp_path / "ppg2mel.npz", **flatten_tree(tree))
+    vc = VoiceConverter(tmp_path / "ppg2mel.npz", extractor=object(), encoder=object(),
+                        verbose=False, device="cpu")
+    for name, t in model.state_dict().items():
+        assert torch.equal(vc.model.state_dict()[name], t), name
+
