@@ -48,7 +48,26 @@ Phases, each printing its elapsed seconds:
      training shape (T_y 1000, T_x 160); the checkpoint it writes loads
      back; then the trainer's own step (``make_vits_step``) timed by part
      through module and optimizer hooks;
-  8. each kernel held against its plain PyTorch version on the card, with
+  8. Tacotron training at the width of
+     ``saved_models/attention_run/synthesizer.json``, seeded weights, on a
+     synthetic synthesizer dataset (24 utterances of 801-900 frames: one
+     900-frame bucket, S = 450 decoder steps at r = 2; tone-numbered pinyin
+     texts of 150-200 symbols, bucket 224; unit-norm 256-d embeddings):
+     ``train`` for ``TACO_STEPS`` steps of batch 12 in bf16 (checkpoints,
+     eval artifacts, the trained model exported by ``weights.to_flax`` and
+     loaded by ``Synthesizer``), ``run_gta_synthesis`` over the 24
+     utterances (every GTA mel's shape), the trainer's own step
+     (``make_train_step``) timed warm by part through hooks, with the peak
+     memory and the card's busy share in the decoder loop from a profiler
+     trace, then one f32 batch (dropout and zoneout off, TF32 off) on the
+     card against the CPU: loss and gradients. No kernel is launched;
+  9. WaveRNN MOL at the width of ``saved_models/wavernn_run/vocoder_wavernn.json``
+     with ``mode="MOL"``, seeded weights: ``infer_waveform`` of a 200-frame
+     mel (7 folds of 8000 + 2·400, the step-by-step generator) timed warm,
+     the generator on the card against the CPU with handed-in draws in f32,
+     then ``load`` of a second export into a RAW vocoder: K1's output
+     after the swap equals a fresh vocoder's. No kernel on the MOL path;
+  10. each kernel held against its plain PyTorch version on the card, with
      the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
      (its fold-major layout) on the TTS path's own inputs, then timed at
      one utterance's folds and at 4 folds per SM, with the launch plan, the
@@ -56,7 +75,7 @@ Phases, each printing its elapsed seconds:
      (alignment search, exactly equal) on the training step's own inputs
      and on ragged, tied and band-less cases, timed per call with CUDA
      events, the kernel's own device time from a profiler trace beside it;
-  9. one ``kernels`` JSON line, then the contract line
+  11. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
 Every path is timed under PyTorch's defaults, which is what a caller of the
@@ -70,6 +89,7 @@ needs a CUDA card; without one it exits non-zero before any phase.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -83,6 +103,13 @@ import numpy as np
 import torch
 
 from mockingbird_tpu_torch.config import Config
+from mockingbird_tpu_torch.models.tacotron import (Synthesizer, SynthesizerDataset, Tacotron,
+                                                   collate_synthesizer, tacotron_config)
+from mockingbird_tpu_torch.models.tacotron.train import (clip_by_global_norm, loss_of,
+                                                         make_train_step, run_gta_synthesis)
+from mockingbird_tpu_torch.models.tacotron.train import make_optimizer as taco_optimizer
+from mockingbird_tpu_torch.models.tacotron.train import to_device as taco_to_device
+from mockingbird_tpu_torch.models.tacotron.train import train as taco_train
 from mockingbird_tpu_torch.models.vits import VitsSynthesizer, train as vits_train
 from mockingbird_tpu_torch.models.vits import model as vits_model_module
 from mockingbird_tpu_torch.models.vits.model import vits_config
@@ -101,6 +128,10 @@ from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, plan
 from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline, make_voice_converter
 from mockingbird_tpu_torch.text import text_to_sequence
 from mockingbird_tpu_torch.train.checkpoint import CheckpointManager
+from mockingbird_tpu_torch.train.precision import Policy
+from mockingbird_tpu_torch.weights import save_npz, to_flax
+
+taco_train_module = importlib.import_module("mockingbird_tpu_torch.models.tacotron.train")
 
 ROOT = Path(__file__).resolve().parent
 REF_WAV = ROOT / "saved_models/gan_run/eval/ground_truth.wav"
@@ -122,6 +153,15 @@ TRAIN_BATCH = 16
 TRAIN_FRAMES = (901, 1000)
 TRAIN_SYMBOLS = (100, 160)
 VITS_CFG: dict = {}          # overrides of the committed config (none on the card)
+# Tacotron training: 24 utterances of 801-900 frames (one 900-frame bucket,
+# S = 450 decoder steps at r = 2), texts of 150-200 symbols (bucket 224)
+TACO_UTTS = 24
+TACO_FRAMES = (801, 900)
+TACO_SYMBOLS = (150, 200)
+TACO_SCHEDULE = ((2, 1e-3, 10_000, 12),)
+TACO_STEPS = 4
+TACO_CFG: dict = {}          # overrides of the committed config (none on the card)
+MOL_FRAMES = 200
 # bench.py's headline shape: batch 128 of one text, 400 decode steps with a
 # stop threshold random weights never meet, tts_batch in chunks of 32
 BENCH_TEXT = "ni3 hao3 shi4 jie4 zhe4 shi4 yi2 ge4 ce4 shi4 ju4 zi3"
@@ -958,6 +998,272 @@ def phase_vits_train(dev, tmp: Path):
 
 
 # ---------------------------------------------------------------------------
+# Tacotron training and WaveRNN's MOL mode (no kernel on either path)
+# ---------------------------------------------------------------------------
+
+PINYIN = ("ni3", "hao3", "shi4", "jie4", "zhong1", "guo2", "ren2", "wo3", "men5", "de5",
+          "yu3", "yin1", "he2", "cheng2", "jin1", "tian1", "qi4", "hen3")
+
+
+def _write_taco_dataset(root: Path, seed: int = 0) -> list:
+    """``SynthesizerDataset``'s layout: ``train.txt``, ``mels/`` (M, T)
+    smooth seeded noise in ±4, ``embeds/`` unit-norm 256-d vectors; texts of
+    tone-numbered pinyin. Returns the rows' (frames, symbols)."""
+    rng = np.random.RandomState(seed)
+    (root / "mels").mkdir(parents=True)
+    (root / "embeds").mkdir()
+    frames = np.linspace(TACO_FRAMES[0], TACO_FRAMES[1], TACO_UTTS).astype(int)
+    symbols = np.linspace(TACO_SYMBOLS[0], TACO_SYMBOLS[1], TACO_UTTS).astype(int)
+    rows, shapes = [], []
+    kernel = np.hanning(9) / np.hanning(9).sum()
+    for i in range(TACO_UTTS):
+        words = []
+        while len(" ".join(words)) < symbols[i]:
+            words.append(PINYIN[rng.randint(len(PINYIN))])
+        text = " ".join(words)[: symbols[i] - 2] + "a"   # + EOS: symbols[i] ids
+        check(len(text_to_sequence(text)) == symbols[i], "synthetic text length")
+        noise = rng.randn(80, frames[i] + 8) * 2.5 - 1.0
+        mel = np.stack([np.convolve(row, kernel, "valid") for row in noise])
+        np.save(root / "mels" / f"mel-spk{i % 4}_{i:04d}.npy",
+                np.clip(mel, -4, 4).astype(np.float32))
+        emb = rng.randn(256)
+        np.save(root / "embeds" / f"embed-spk{i % 4}_{i:04d}.npy",
+                (emb / np.linalg.norm(emb)).astype(np.float32))
+        rows.append(f"audio-spk{i % 4}_{i:04d}.npy|mel-spk{i % 4}_{i:04d}.npy|"
+                    f"embed-spk{i % 4}_{i:04d}.npy|{frames[i] * 256}|{frames[i]}|{text}")
+        shapes.append((int(frames[i]), int(symbols[i])))
+    (root / "train.txt").write_text("\n".join(rows) + "\n", encoding="utf-8")
+    return shapes
+
+
+def phase_tacotron_train(dev, tmp: Path):
+    cfg = Config(tacotron_config()).merge(Config.from_json(TACOTRON_JSON)).merge(TACO_CFG)
+    shapes = _write_taco_dataset(tmp / "taco_data")
+    models = tmp / "taco_models"
+    r, _, _, batch_size = TACO_SCHEDULE[0]
+    t_text = -(-max(s for _, s in shapes) // 32) * 32
+    t_mel = -(-max(f for f, _ in shapes) // 100) * 100
+    with Phase(f"Tacotron training: train, {TACO_STEPS} steps of batch {batch_size}, "
+               f"S = {t_mel // r}, bf16"):
+        check_config("Tacotron", cfg, TACOTRON_JSON)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = taco_train("smoke", tmp / "taco_data", models, schedule=TACO_SCHEDULE,
+                           total_steps=TACO_STEPS, save_every=2, eval_every=3, log_every=1,
+                           cfg=cfg, precision="bf16", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"  launches on the training path: {launches} (no kernel on this path)")
+        check(not any(launches.values()), "a kernel launched on the Tacotron training path")
+        logs = [json.loads(line) for line in
+                (models / "smoke/logs/scalars.jsonl").read_text().splitlines()]
+        check(len(logs) == TACO_STEPS, f"{len(logs)} logged steps")
+        for rec in logs:
+            print("  " + ", ".join(f"{k} {v:.4g}" for k, v in rec.items()))
+            check(all(np.isfinite(v) for v in rec.values()), f"a loss is not finite: {rec}")
+        print(f"  {sum(p.numel() for p in model.parameters())} parameters; texts padded to "
+              f"{t_text}, mels to {t_mel} frames; {wall:.2f} s wall for {TACO_STEPS} steps")
+        ckpt = CheckpointManager(models / "smoke/ckpt")
+        step, state = ckpt.restore_latest(map_location=dev)
+        check(ckpt.steps() == [2, 4, TACO_STEPS + 1], f"checkpoints {ckpt.steps()}")
+        for name, t in model.state_dict().items():
+            check(torch.equal(state["model"][name], t), f"restored {name} differs")
+        ev = models / "smoke/eval"
+        att = np.load(ev / "attention_000003.npz")
+        pred = np.load(ev / "mel-prediction-step-000003.npy")
+        wav, sr = load_wav(ev / "step-000003-wave-from-mel.wav")
+        check(att["attn"].shape == (t_mel // r, t_text) and pred.shape[1] == 80
+              and len(wav) > 0 and bool(np.isfinite(wav).all()), "eval artifacts")
+        print(f"  checkpoints {ckpt.steps()}, step {step} restored: {len(state['model'])} "
+              f"tensors equal; eval artifacts of step 3: attention {att['attn'].shape}, "
+              f"mel {pred.shape}, Griffin-Lim wav {len(wav)} samples at {sr} Hz")
+        export = models / "smoke/synthesizer.npz"
+        save_npz(export, to_flax(model))
+        export.with_suffix(".json").write_text(json.dumps(cfg.to_dict()))
+        syn = Synthesizer(export, verbose=False, device=dev)
+        syn.load()
+        for (name, a), b in zip(syn._model.state_dict().items(), model.state_dict().values()):
+            check(torch.equal(a, b), f"the .npz export of {name} did not load back")
+        print(f"  the trained model, exported by weights.to_flax to {export.name}, loads "
+              f"into Synthesizer unchanged")
+
+    with Phase(f"Tacotron training: run_gta_synthesis over {TACO_UTTS} utterances"):
+        zero_counts()
+        t0 = time.perf_counter()
+        n = run_gta_synthesis("smoke", tmp / "taco_data", models, r=r, cfg=cfg, device=dev)
+        wall = time.perf_counter() - t0
+        check(not any(read_counts().values()), "a kernel launched in GTA synthesis")
+        names = (tmp / "taco_data/synthesized.txt").read_text().splitlines()
+        check(n == len(names) == TACO_UTTS, f"{n} GTA mels, {len(names)} named")
+        for i, (frames, _) in enumerate(shapes):
+            gta = np.load(tmp / "taco_data/mels_gta" / f"mel-spk{i % 4}_{i:04d}.npy")
+            check(gta.shape == (80, frames) and bool(np.isfinite(gta).all()),
+                  f"GTA mel {i}: {gta.shape}, want (80, {frames})")
+        print(f"  {n} GTA mels of shapes (80, {shapes[0][0]}..{shapes[-1][0]}) in {wall:.2f} s")
+
+    with Phase("Tacotron training: the trainer's step, by part (synchronised at each mark)"):
+        ds = SynthesizerDataset(tmp / "taco_data/train.txt", tmp / "taco_data/mels",
+                                tmp / "taco_data/embeds")
+        batch = taco_to_device(collate_synthesizer([ds[i] for i in range(batch_size)], r=r),
+                               dev)
+        opt = taco_optimizer(model, 1e-3)
+        step = make_train_step(model, opt, r, "bf16")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        loop_args = []                   # the decoder loop's inputs, for its profile
+        h = model.decoder.register_forward_pre_hook(lambda _, args: loop_args.append(args))
+        step(batch, gen)                                                 # warm
+        h.remove()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        marks = []
+
+        def mark(event):
+            def hook(*_, **__):
+                torch.cuda.synchronize()
+                marks.append((event, time.perf_counter()))
+            return hook
+
+        def clip_marked(grads, max_norm=1.0):
+            mark("backward ends, clip begins")()
+            norm = clip_by_global_norm(grads, max_norm)
+            mark("clip ends")()
+            return norm
+
+        handles = [model.encoder_proj.register_forward_hook(mark("encoder ends")),
+                   model.postnet.register_forward_pre_hook(mark("decoder loop ends")),
+                   model.register_forward_hook(mark("postnet ends")),
+                   opt.register_step_pre_hook(mark("Adam begins")),
+                   opt.register_step_post_hook(mark("Adam ends"))]
+        taco_train_module.clip_by_global_norm = clip_marked
+        torch.cuda.reset_peak_memory_stats()
+        mark("step begins")()
+        step(batch, gen)
+        mark("step ends")()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        taco_train_module.clip_by_global_norm = clip_by_global_norm
+        for h in handles:
+            h.remove()
+        for (a, t_a), (b, t_b) in zip(marks, marks[1:]):
+            print(f"  {a} -> {b}: {(t_b - t_a) * 1e3:.1f} ms")
+        print(f"  step without marks: {[round(w * 1e3, 1) for w in walls]} ms "
+              f"({tf32_state()}); peak memory {peak:.2f} GiB")
+        print(f"  the decoder loop's forward ({t_mel // r} steps, autograd recording, no "
+              f"backward): " + device_split(lambda: model.decoder(*loop_args[0])))
+
+    with Phase("Tacotron training: f32 loss and gradients on the card against the CPU"):
+        cpu = Tacotron(cfg).train()
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        idx = [0, TACO_UTTS - 1]
+        host = collate_synthesizer([ds[i] for i in idx], r=r)
+        s = host["mels"].shape[1] // r
+        zo = torch.zeros((s, 2, len(idx), cfg.lstm_dims), dtype=torch.bool)
+        results = {}
+        for name, m, d, cudnn in (("cpu", cpu, "cpu", True), ("card", model, dev, True),
+                                  ("card, cuDNN off", model, dev, False)):
+            b = taco_to_device(host, d)
+            m.zero_grad(set_to_none=True)
+            with full_f32() if d != "cpu" else nullcontext(), \
+                    torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+                loss, _, _ = loss_of(m, b, r, Policy.from_name("fp32"), zo_masks=zo.to(d))
+                loss.backward()
+            results[name] = (loss.item(), [p.grad.detach().cpu().double() for p in m.parameters()])
+
+        def errors(name):
+            (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results[name]
+            num = sum(float(((a - b) ** 2).sum()) for a, b in zip(g_card, g_cpu))
+            return (abs(l_card - l_cpu) / abs(l_cpu),
+                    (num / sum(float((b ** 2).sum()) for b in g_cpu)) ** 0.5)
+        loss_err, grad_err = errors("card")
+        print(f"  batch {len(idx)} x {s} steps, dropout and zoneout off, TF32 off: loss "
+              f"{results['card'][0]:.6f} vs {results['cpu'][0]:.6f}, relative error "
+              f"{loss_err:.3g} (bound 1e-4); gradients relative L2 {grad_err:.3g} (bound 1e-3); "
+              f"with cuDNN off: loss {errors('card, cuDNN off')[0]:.3g}, gradients "
+              f"{errors('card, cuDNN off')[1]:.3g} (not held)")
+        check(loss_err <= 1e-4, f"the f32 loss on the card differs from the CPU by {loss_err}")
+        check(grad_err <= 1e-3, f"the f32 gradients differ from the CPU's by {grad_err}")
+
+
+def phase_wavernn_mol(dev, tmp: Path):
+    cfg = dict(Config.from_json(WAVERNN_JSON), mode="MOL")
+    rng = np.random.RandomState(0)
+    mel = np.clip(rng.randn(80, MOL_FRAMES) * 1.5 - 1.0, -4, 4).astype(np.float32)
+    with Phase(f"WaveRNN MOL: infer_waveform of a {MOL_FRAMES}-frame mel, full width"):
+        voc = WaveRnnVocoder(cfg=cfg, verbose=False, seed=0, device=dev)
+        check(voc.model.n_classes == 30, "the MOL head")
+        voc.infer_waveform(mel[:, :20], target=800, overlap=100)         # warm
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = voc.infer_waveform(mel)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        check(not any(launches.values()), "a kernel launched on the MOL path")
+        check(voc.packed is None, "the MOL path packed sampler weights")
+        check(wav.shape == ((MOL_FRAMES - 1) * voc.cfg.hop_size,)
+              and bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 0,
+              f"MOL waveform {wav.shape}")
+        t_up = MOL_FRAMES * voc.cfg.hop_size
+        folds = len(voc._fold_plan(t_up, voc.cfg.gen_target, voc.cfg.gen_overlap)[0])
+        width = voc.cfg.gen_target + 2 * voc.cfg.gen_overlap
+        print(f"  launches on the MOL path: {launches} (no kernel: the step-by-step "
+              f"generator, as in the JAX package)")
+        print(f"  {len(wav)} samples ({len(wav) / 16000:.2f} s) from {folds} folds x "
+              f"{width} steps in {wall:.3f} s warm: {wall / width * 1e6:.1f} us per step, "
+              f"RTF {len(wav) / 16000 / wall:.3f} ({tf32_state()})")
+
+    with Phase("WaveRNN MOL: the generator on the card against the CPU, handed-in draws"):
+        cpu = WaveRnnVocoder(cfg=cfg, verbose=False, seed=0, device="cpu")
+        c = voc.cfg
+        mel_p = np.pad(mel[:, :20].T / c.mel_max_abs_value, ((c.pad, c.pad), (0, 0)))[None]
+        with torch.no_grad():
+            mels_f, aux_f = cpu._fold(mel_p.astype(np.float32), 800, 100)
+        n_f, length = mels_f.shape[:2]
+        g = torch.Generator().manual_seed(1)
+        u_mix = torch.rand(length, n_f, 10, generator=g)
+        draws = (-torch.log(-torch.log(u_mix.clamp(min=1e-20))),
+                 1e-5 + (1 - 2e-5) * torch.rand(length, n_f, generator=g))
+        want = cpu.generate(mels_f, aux_f, draws=draws)
+        with full_f32():
+            got = voc.generate(mels_f.to(dev), aux_f.to(dev),
+                               draws=tuple(d.to(dev) for d in draws)).cpu()
+        err = float((got - want).abs().max())
+        print(f"  {n_f} folds x {length} steps, f32, TF32 off: max |card - cpu| = {err:.3g} "
+              f"(bound 1e-3)")
+        check(err <= 1e-3, f"the MOL generator on the card differs from the CPU by {err}")
+
+    with Phase("WaveRNN load: hot swap, the sampler's packed weights rebuilt"):
+        raw = WaveRnnVocoder(cfg=Config.from_json(WAVERNN_JSON), verbose=False, seed=0,
+                             device=dev)
+        short = mel[:, :30]
+        before = raw.infer_waveform(short, seed=5)
+        stale = raw.packed
+        export = tmp / "wavernn_seed1.npz"
+        save_npz(export, to_flax(WaveRnnVocoder(cfg=Config.from_json(WAVERNN_JSON),
+                                                verbose=False, seed=1, device="cpu").model))
+        raw.load(export, verbose=False)
+        check(raw.packed is None, "load kept the packed weights")
+        after = raw.infer_waveform(short, seed=5)
+        fresh = WaveRnnVocoder(export, cfg=Config.from_json(WAVERNN_JSON), verbose=False,
+                               device=dev)
+        check(np.array_equal(after, fresh.infer_waveform(short, seed=5)),
+              "K1's output after load differs from a fresh vocoder's")
+        check(not np.array_equal(after, before), "load did not change the output")
+        check(all(torch.equal(raw.packed[k], v) for k, v in fresh.packed.items())
+              and not all(torch.equal(stale[k], v) for k, v in fresh.packed.items()),
+              "the packed weights were not rebuilt")
+        print(f"  after load: K1's audio ({len(after)} samples) equals a fresh vocoder's from "
+              f"the same export, and differs from before the swap")
+
+
+# ---------------------------------------------------------------------------
 # the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1194,6 +1500,10 @@ def main() -> int:
     phase_vits_serve(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train_inputs, train_launches = phase_vits_train(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_tacotron_train(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_wavernn_mol(dev, Path(tmp))
     kernels = phase_k1(dev, pipe, captured, tts_launches)
     kernels.append(phase_k2(dev, train_inputs, train_launches))
     print(f"== total: {time.perf_counter() - t_start:.2f} s")

@@ -4,9 +4,10 @@ flax's ``GRUCell`` and ``LSTMCell`` differ from PyTorch's in where the biases
 sit: a flax GRU has biases on the three input gates and on ``hn`` only, a
 flax LSTM on the four hidden gates only. The formulas are otherwise PyTorch's
 (GRU gates r, z, n with n = tanh(W_in·x + b_in + r·(W_hn·h + b_hn)); LSTM
-gates i, f, g, o). The sequence layers here therefore use PyTorch's fused
-``nn.GRU`` / ``nn.LSTM`` with the biases flax lacks held at zero, and
-``weights.py`` fills the rest from a flax tree.
+gates i, f, g, o). The recurrent layers here therefore make PyTorch's fused
+GRU/LSTM calls with the biases flax lacks as zero buffers (not parameters,
+so training cannot move them), and ``weights.py`` fills the rest from a
+flax tree.
 
 Below them, the flax layers the VITS and HiFi-GAN modules are built from:
 ``Dense``, ``LayerNorm``, convolutions with flax's padding, and flax's
@@ -25,13 +26,14 @@ import torch.nn.functional as F
 class FusedGRUCell(nn.Module):
     """One GRU step as two matmuls: ``wi`` = [ir|iz|in] (+ input biases),
     ``wh`` = [hr|hz|hn] (no bias), ``bn`` the ``hn`` bias. Port of
-    ``models/tacotron/model.py:FusedGRUCell`` (also flax ``nn.GRUCell``)."""
+    ``models/tacotron/model.py:FusedGRUCell`` (also flax ``nn.GRUCell``);
+    computes in the promoted dtype of its inputs and parameters."""
 
     def __init__(self, in_dims: int, features: int):
         super().__init__()
         self.features = features
-        self.wi = nn.Linear(in_dims, 3 * features)
-        self.wh = nn.Linear(features, 3 * features, bias=False)
+        self.wi = Dense(in_dims, 3 * features)
+        self.wh = Dense(features, 3 * features, bias=False)
         self.bn = nn.Parameter(torch.zeros(features))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -43,52 +45,90 @@ class FusedGRUCell(nn.Module):
         return (1.0 - z) * n + z * h
 
 
+# The recurrent layers below hold flax's parameters and no more. PyTorch's
+# fused GRU and LSTM calls take biases flax does not have (the GRU's hidden
+# r/z biases, the LSTM's input biases); those are zero buffers handed to the
+# call, so no optimizer can move them and ``parameters()`` are flax's leaves.
+# The calls are the ones ``nn.GRU``/``nn.LSTM``/``nn.LSTMCell`` make
+# (``torch.gru``/``torch.lstm`` run cuDNN on a card, which packs the
+# weights per call since they are not one flattened buffer).
+
 class GRULayer(nn.Module):
     """flax ``nn.RNN(nn.GRUCell)`` over (B, T, D) from a zero state;
-    ``reverse=True`` runs right to left and keeps the output order."""
+    ``reverse=True`` runs right to left and keeps the output order.
+    Parameters: ``weight_ih_l0`` / ``bias_ih_l0`` (r, z, n input gates),
+    ``weight_hh_l0`` (hidden gates), ``bias_hn``; the r/z hidden biases are
+    the zero buffer ``bias_hh_rz``. The recurrence runs in float32 whatever
+    the input: flax's carry is float32, which promotes every gate; a bf16
+    input's input gates are bf16 products, as flax's Denses make them."""
 
     def __init__(self, in_dims: int, hidden: int, reverse: bool = False):
         super().__init__()
         self.reverse = reverse
-        self.gru = nn.GRU(in_dims, hidden, batch_first=True)
-        with torch.no_grad():
-            self.gru.bias_hh_l0[: 2 * hidden].zero_()
+        gru = nn.GRU(in_dims, hidden, batch_first=True)
+        self.weight_ih_l0, self.weight_hh_l0 = gru.weight_ih_l0, gru.weight_hh_l0
+        self.bias_ih_l0 = gru.bias_ih_l0
+        self.bias_hn = nn.Parameter(gru.bias_hh_l0.detach()[2 * hidden:].clone())
+        self.register_buffer("bias_hh_rz", torch.zeros(2 * hidden), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w_ih, b_ih = self.weight_ih_l0.float(), self.bias_ih_l0.float()
+        if torch.promote_types(x.dtype, self.weight_ih_l0.dtype) != torch.float32:
+            # flax's input gates are Denses of the bf16 input: their output
+            # is rounded to bf16 before the float32 hidden gates are added
+            x = with_bias(F.linear, *promote(x, self.weight_ih_l0, self.bias_ih_l0),
+                          channel_dim=-1)
+            w_ih = torch.eye(x.shape[-1], device=x.device)
+            b_ih = torch.zeros_like(b_ih)
+        x = x.float()
         if self.reverse:
-            return self.gru(x.flip(1))[0].flip(1)
-        return self.gru(x)[0]
+            x = x.flip(1)
+        b_hh = torch.cat([self.bias_hh_rz, self.bias_hn.float()])
+        h0 = x.new_zeros(1, x.shape[0], self.bias_hn.shape[0])
+        weights = [w_ih, self.weight_hh_l0.float(), b_ih, b_hh]
+        y = torch.gru(x, h0, weights, True, 1, 0.0, self.training, False, True)[0]
+        return y.flip(1) if self.reverse else y
 
 
 class FusedLSTMLayer(nn.Module):
     """One LSTM layer over (B, T, D) from a zero state. Port of
     ``models/encoder/model.py:FusedLSTMLayer``: the input projection for all
     steps is one matmul and only the recurrence runs per step, which is what
-    the fused ``nn.LSTM`` kernel does."""
+    the fused LSTM call does. Parameters ``weight_ih_l0``, ``weight_hh_l0``,
+    ``bias_hh_l0``; the input biases are the zero buffer ``bias_ih_l0``."""
 
     def __init__(self, in_dims: int, hidden: int):
         super().__init__()
-        self.lstm = nn.LSTM(in_dims, hidden, batch_first=True)
-        with torch.no_grad():
-            self.lstm.bias_ih_l0.zero_()
+        lstm = nn.LSTM(in_dims, hidden, batch_first=True)
+        self.weight_ih_l0, self.weight_hh_l0 = lstm.weight_ih_l0, lstm.weight_hh_l0
+        self.bias_hh_l0 = lstm.bias_hh_l0
+        self.register_buffer("bias_ih_l0", torch.zeros(4 * hidden), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lstm(x)[0]
+        x, w_ih, w_hh, b_hh = promote(x, self.weight_ih_l0, self.weight_hh_l0, self.bias_hh_l0)
+        h0 = x.new_zeros(1, x.shape[0], b_hh.shape[0] // 4)
+        weights = [w_ih, w_hh, self.bias_ih_l0.to(x.dtype), b_hh]
+        return torch.lstm(x, (h0, h0), weights, True, 1, 0.0, self.training, False, True)[0]
 
 
 class LSTMCell(nn.Module):
-    """flax ``OptimizedLSTMCell``: carry (c, h) → (c', h')."""
+    """flax ``OptimizedLSTMCell``: carry (c, h) → (c', h'), in the promoted
+    dtype of the carry, the input and the parameters. Parameters
+    ``weight_ih``, ``weight_hh``, ``bias_hh``; the input biases are the
+    zero buffer ``bias_ih``."""
 
     def __init__(self, in_dims: int, hidden: int):
         super().__init__()
-        self.cell = nn.LSTMCell(in_dims, hidden)
-        with torch.no_grad():
-            self.cell.bias_ih.zero_()
+        cell = nn.LSTMCell(in_dims, hidden)
+        self.weight_ih, self.weight_hh, self.bias_hh = cell.weight_ih, cell.weight_hh, cell.bias_hh
+        self.register_buffer("bias_ih", torch.zeros(4 * hidden), persistent=False)
 
     def forward(self, carry: Tuple[torch.Tensor, torch.Tensor],
                 x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         c, h = carry
-        h, c = self.cell(x, (h, c))
+        x, c, h, w_ih, w_hh, b_hh = promote(x, c, h, self.weight_ih, self.weight_hh,
+                                            self.bias_hh)
+        h, c = torch.lstm_cell(x, (h, c), w_ih, w_hh, self.bias_ih.to(x.dtype), b_hh)
         return c, h
 
 
@@ -165,6 +205,41 @@ class BatchNorm(nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.transpose(1, 2)).transpose(1, 2)
+
+
+class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over axis 1 of
+    (B, C, ...), in eval and in training mode.
+
+    Eval mode normalises with the running statistics. Training mode
+    normalises with the batch's mean and biased variance, both in float32
+    (flax's E[x²] − E[x]², clipped at 0), and sets each running statistic to
+    0.9·running + 0.1·batch, with the *biased* variance (PyTorch's
+    BatchNorm would take the unbiased one). The update reads the running
+    statistics rounded to the parameters' dtype, as the JAX step under a
+    bf16 policy casts its ``batch_stats``, and writes the float32 result
+    back into the buffers. The output is in the promoted dtype of the input
+    and the parameters."""
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        pass
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        out_dt = promote(x, self.weight, self.bias)[0].dtype
+        xf = x.float()
+        if self.training:
+            dims = [0] + list(range(2, x.ndim))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+                    buf.copy_((0.9 * buf.to(self.weight.dtype)).float() + (1 - 0.9) * stat)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        return y.to(out_dt)
 
 
 def weight_norm(v: torch.Tensor, scale: torch.Tensor, out_dim: int) -> torch.Tensor:

@@ -1,17 +1,33 @@
-"""Tacotron SV2TTS synthesizer, inference parts.
+"""Tacotron SV2TTS synthesizer.
 
 Port of ``mockingbird_tpu/models/tacotron/model.py``: CBHG encoder +
 per-char speaker-embedding concat + GST concat + autoregressive decoder with
-location-sensitive attention, two residual LSTMs, reduction factor r,
-stop-token head and CBHG postnet. Module I/O is time-major (B, T, C) like the
-JAX package; convolutions transpose to PyTorch's (B, C, T) inside.
+location-sensitive attention, two residual zoneout LSTMs, reduction factor
+r, stop-token head and CBHG postnet. Module I/O is time-major (B, T, C) like
+the JAX package; convolutions transpose to PyTorch's (B, C, T) inside.
 
 Two behaviours follow the JAX package and not the original reference:
   * ``LSA`` masks padded text positions additively with -1e9
     (``lsa_mask="additive"``; ``"reference"`` keeps the u·mask quirk);
   * ``PreNet`` keeps dropout on at inference. Its noise comes from an
     explicit ``torch.Generator``; ``prenet_dropout=False`` turns it off.
-Teacher-forced training (zoneout, the fused scan) waits for the trainer slice.
+
+``Tacotron.forward`` is the teacher-forced training forward in the JAX
+package's fused form (``fused_scan``): the PreNet runs over all S steps at
+once, the zoneout masks are one (S, 2, B, lstm) draw (or handed in), the
+recurrence is ``step_core`` alone, in a Python loop on the device, and the
+mel and stop heads run once on the stacked outputs. The JAX package's
+legacy unfused path differs only in the order of its random draws and is
+not ported. ``remat_decoder`` checkpoints each step
+(``torch.utils.checkpoint``); ``scan_unroll`` is a TPU compile knob, taken
+and ignored. The module's mode is the switch ``train`` is in the JAX
+package: ``model.train()`` turns zoneout on and puts every BatchNorm in
+batch-statistics mode (``layers.FlaxBatchNorm``).
+
+Every layer computes in the promoted dtype of its input and its parameters,
+as flax does, so that a bf16 policy (``train/precision.py``) casts the
+parameters and the float inputs and the float32 carries promote the decoder
+back to float32, as they do in the JAX step.
 """
 from __future__ import annotations
 
@@ -20,9 +36,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ...config import Config
-from ..layers import Dropout, FusedGRUCell, GRULayer, LSTMCell
+from ..layers import (Dense, Dropout, FlaxBatchNorm, FusedGRUCell, GRULayer, LSTMCell,
+                      promote, with_bias)
 
 
 def tacotron_config() -> Config:
@@ -47,6 +66,8 @@ def tacotron_config() -> Config:
         max_r=20,
         stop_threshold=-3.4,
         lsa_mask="additive",
+        remat_decoder=False,
+        scan_unroll=4,
         use_gst=True,
         use_ser_for_gst=True,
         gst_E=512,
@@ -66,8 +87,8 @@ class HighwayNetwork(nn.Module):
 
     def __init__(self, size: int):
         super().__init__()
-        self.W1 = nn.Linear(size, size)
-        self.W2 = nn.Linear(size, size)
+        self.W1 = Dense(size, size)
+        self.W2 = Dense(size, size)
 
     def forward(self, x):
         g = torch.sigmoid(self.W2(x))
@@ -80,12 +101,13 @@ class BatchNormConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, relu: bool = True):
         super().__init__()
-        self.conv = nn.Conv1d(in_channels, out_channels, kernel, padding=kernel // 2, bias=False)
-        self.bnorm = nn.BatchNorm1d(out_channels)
+        self.conv = nn.Conv1d(in_channels, out_channels, kernel, bias=False)
+        self.bnorm = FlaxBatchNorm(out_channels)
         self.relu = relu
 
     def forward(self, x):                      # (B, C, T) → (B, C', T')
-        x = self.conv(x)
+        x, w = promote(x, self.conv.weight)
+        x = F.conv1d(x, w, None, 1, w.shape[-1] // 2)
         return self.bnorm(torch.relu(x) if self.relu else x)
 
 
@@ -101,7 +123,7 @@ class CBHG(nn.Module):
             self.add_module(f"bank_{k}", BatchNormConv(in_channels, channels, k))
         self.conv_project1 = BatchNormConv(K * channels, proj_channels[0], 3)
         self.conv_project2 = BatchNormConv(proj_channels[0], proj_channels[1], 3, relu=False)
-        self.pre_highway = (nn.Linear(proj_channels[1], channels, bias=False)
+        self.pre_highway = (Dense(proj_channels[1], channels, bias=False)
                             if proj_channels[-1] != channels else None)
         for i in range(num_highways):
             self.add_module(f"highway_{i}", HighwayNetwork(channels))
@@ -130,8 +152,8 @@ class PreNet(nn.Module):
     def __init__(self, in_dims: int, fc1_dims: int, fc2_dims: int,
                  dropout: float = 0.5, enabled: bool = True):
         super().__init__()
-        self.fc1 = nn.Linear(in_dims, fc1_dims)
-        self.fc2 = nn.Linear(fc1_dims, fc2_dims)
+        self.fc1 = Dense(in_dims, fc1_dims)
+        self.fc2 = Dense(fc1_dims, fc2_dims)
         self.drop = Dropout(dropout if enabled else 0.0)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
@@ -164,8 +186,8 @@ class ReferenceEncoder(nn.Module):
         self.n = len(c.gst_ref_filters)
         w = c.speaker_embedding_size
         for i in range(self.n):
-            self.add_module(f"conv_{i}", nn.Conv2d(chans[i], chans[i + 1], 3, stride=2, padding=1))
-            self.add_module(f"bn_{i}", nn.BatchNorm2d(chans[i + 1]))
+            self.add_module(f"conv_{i}", nn.Conv2d(chans[i], chans[i + 1], 3))
+            self.add_module(f"bn_{i}", FlaxBatchNorm(chans[i + 1]))
             w = (w - 1) // 2 + 1
         self.gru = GRULayer(chans[-1] * w, c.gst_E // 2)
 
@@ -173,7 +195,9 @@ class ReferenceEncoder(nn.Module):
         b, n_feat = inputs.shape[0], inputs.shape[-1]
         x = inputs.reshape(b, 1, -1, n_feat)       # NCHW: (B, 1, T, n_feat)
         for i in range(self.n):
-            x = torch.relu(getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(x)))
+            conv = getattr(self, f"conv_{i}")
+            x = with_bias(F.conv2d, *promote(x, conv.weight, conv.bias), 2, 1)
+            x = torch.relu(getattr(self, f"bn_{i}")(x))
         b, ch, t, w = x.shape
         # channel-major (C, W) flatten, as the reference does
         x = x.permute(0, 2, 1, 3).reshape(b, t, ch * w)
@@ -190,9 +214,9 @@ class StyleTokenLayer(nn.Module):
         d_token = c.gst_E // c.gst_num_heads
         d_query = c.gst_E // 2 + (c.speaker_embedding_size if c.use_ser_for_gst else 0)
         self.embed = nn.Parameter(torch.randn(c.gst_token_num, d_token) * 0.5)
-        self.W_query = nn.Linear(d_query, c.gst_E, bias=False)
-        self.W_key = nn.Linear(d_token, c.gst_E, bias=False)
-        self.W_value = nn.Linear(d_token, c.gst_E, bias=False)
+        self.W_query = Dense(d_query, c.gst_E, bias=False)
+        self.W_key = Dense(d_token, c.gst_E, bias=False)
+        self.W_value = Dense(d_token, c.gst_E, bias=False)
 
     def forward(self, query_vec):
         """query_vec (B, d_q) → style embed (B, 1, E)."""
@@ -200,7 +224,8 @@ class StyleTokenLayer(nn.Module):
         keys = torch.tanh(self.embed)[None].expand(n, -1, -1)
         q = self.W_query(query_vec[:, None, :])
         k, v = self.W_key(keys), self.W_value(keys)
-        qs, ks, vs = (torch.stack(x.chunk(self.heads, dim=2)) for x in (q, k, v))
+        dt = torch.promote_types(q.dtype, k.dtype)
+        qs, ks, vs = (torch.stack(x.to(dt).chunk(self.heads, dim=2)) for x in (q, k, v))
         scores = torch.einsum("hbqd,hbkd->hbqk", qs, ks) / (self.embed.shape[-1] ** 0.5)
         out = torch.einsum("hbqk,hbkd->hbqd", torch.softmax(scores, dim=3), vs)
         return torch.cat(list(out), dim=2)
@@ -227,20 +252,36 @@ class GlobalStyleToken(nn.Module):
 
 class LSA(nn.Module):
     """Location-sensitive attention: conv(31, 32) over the cumulative
-    attention, additive scoring, -1e9 on padded text positions."""
+    attention, additive scoring, -1e9 on padded text positions.
+
+    As in the JAX package, the location conv and its projection ``L`` run
+    as one composed conv (31, 1→attn_dim) with the constant bias L·b_conv:
+    one kernel per decoder step instead of two, and the (B, T, 32)
+    intermediate never exists; the parameters stay ``conv`` and ``L``. The
+    composed kernel is formed in the parameters' dtype, as JAX forms it."""
 
     def __init__(self, query_dims: int, attn_dim: int, kernel_size: int = 31,
                  filters: int = 32, masking: str = "additive"):
         super().__init__()
-        self.W = nn.Linear(query_dims, attn_dim)
-        self.conv = nn.Conv1d(1, filters, kernel_size, padding=(kernel_size - 1) // 2)
-        self.L = nn.Linear(filters, attn_dim, bias=False)
-        self.v = nn.Linear(attn_dim, 1, bias=False)
+        self.W = Dense(query_dims, attn_dim)
+        self.conv = nn.Conv1d(1, filters, kernel_size)
+        self.L = Dense(filters, attn_dim, bias=False)
+        self.v = Dense(attn_dim, 1, bias=False)
         self.masking = masking
 
-    def forward(self, encoder_seq_proj, query, cumulative, char_mask):
+    def location_kernel(self):
+        """The composed (attn_dim, 1, k) kernel and (attn_dim,) bias, in the
+        parameters' dtype."""
+        return (torch.einsum("fik,df->dik", self.conv.weight, self.L.weight),
+                self.L.weight @ self.conv.bias)
+
+    def forward(self, encoder_seq_proj, query, cumulative, char_mask, loc=None):
+        """``loc``: ``location_kernel()`` made once for a whole decode."""
         processed_query = self.W(query)[:, None, :]
-        processed_loc = self.L(_tc(self.conv(cumulative[:, None, :])))
+        k_eff, b_eff = loc if loc is not None else self.location_kernel()
+        pad = (k_eff.shape[-1] - 1) // 2
+        processed_loc = _tc(F.conv1d(cumulative[:, None, :], k_eff.to(cumulative.dtype),
+                                     None, 1, pad)) + b_eff
         u = self.v(torch.tanh(processed_query + encoder_seq_proj + processed_loc))[..., 0]
         if self.masking == "reference":
             u = u * char_mask
@@ -251,7 +292,7 @@ class LSA(nn.Module):
 
 class TacotronDecoderCell(nn.Module):
     """One decoder step: PreNet → attention GRU → LSA → context → 2 LSTMs
-    with residuals → r mel frames + stop token."""
+    with residuals (zoneout in training) → r mel frames + stop token."""
 
     def __init__(self, c, project_dims: int):
         super().__init__()
@@ -260,38 +301,81 @@ class TacotronDecoderCell(nn.Module):
                              enabled=c.get("prenet_dropout", True))
         self.attn_net = LSA(c.decoder_dims, c.decoder_dims, masking=c.get("lsa_mask", "additive"))
         self.attn_rnn = FusedGRUCell(project_dims + c.decoder_dims * 2, c.decoder_dims)
-        self.rnn_input = nn.Linear(project_dims + c.decoder_dims, c.lstm_dims)
+        self.rnn_input = Dense(project_dims + c.decoder_dims, c.lstm_dims)
         self.res_rnn1 = LSTMCell(c.lstm_dims, c.lstm_dims)
         self.res_rnn2 = LSTMCell(c.lstm_dims, c.lstm_dims)
-        self.mel_proj = nn.Linear(c.lstm_dims, c.n_mels * c.max_r, bias=False)
-        self.stop_proj = nn.Linear(c.lstm_dims + project_dims, 1)
+        self.mel_proj = Dense(c.lstm_dims, c.n_mels * c.max_r, bias=False)
+        self.stop_proj = Dense(c.lstm_dims + project_dims, 1)
 
-    def forward(self, encoder_seq, encoder_seq_proj, char_mask, carry, prenet_in,
-                r: int, generator=None):
+    def step_core(self, encoder_seq, encoder_seq_proj, char_mask, carry, prenet_out,
+                  zo_masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, loc=None):
+        """The recurrence of one step, everything that depends on the carry.
+        ``zo_masks`` (m1, m2), boolean (B, lstm): zoneout keeps the previous
+        hidden state where a mask is set (training); None: no zoneout.
+        ``loc``: the LSA's composed location kernel, made once per decode.
+        Returns (carry, (x, context_vec, scores)); ``x`` feeds the heads."""
         attn_hidden, rnn1_state, rnn2_state, context_vec, cumulative = carry
-        prenet_out = self.prenet(prenet_in, generator)
         attn_hidden = self.attn_rnn(attn_hidden, torch.cat([context_vec, prenet_out], dim=-1))
 
-        scores = self.attn_net(encoder_seq_proj, attn_hidden, cumulative, char_mask)
+        scores = self.attn_net(encoder_seq_proj, attn_hidden, cumulative, char_mask, loc)
         cumulative = cumulative + scores
-        context_vec = torch.einsum("bt,btd->bd", scores, encoder_seq)
+        context_vec = torch.einsum("bt,btd->bd", *promote(scores, encoder_seq))
 
         x = self.rnn_input(torch.cat([context_vec, attn_hidden], dim=1))
-        rnn1_state = self.res_rnn1(rnn1_state, x)
-        x = x + rnn1_state[1]
-        rnn2_state = self.res_rnn2(rnn2_state, x)
-        x = x + rnn2_state[1]
+        states = []
+        for i, (cell, state) in enumerate(((self.res_rnn1, rnn1_state),
+                                           (self.res_rnn2, rnn2_state))):
+            c_next, h_next = cell(state, x)
+            if zo_masks is not None:
+                h_next = torch.where(zo_masks[i], state[1], h_next)
+            states.append((c_next, h_next))
+            x = x + h_next
+        carry = (attn_hidden, states[0], states[1], context_vec, cumulative)
+        return carry, (x, context_vec, scores)
 
+    def project_out(self, x, context_vec, r: int):
+        """mel/stop heads over decoder output ``x`` (..., lstm): per step
+        (B, lstm) or stacked over all steps (S, B, lstm) → mels (..., r, M),
+        stop (...)."""
         c = self.c
-        mels = self.mel_proj(x).reshape(-1, c.n_mels, c.max_r)[..., :r].transpose(-1, -2)
+        lead = x.shape[:-1]
+        mels = self.mel_proj(x).reshape(*lead, c.n_mels, c.max_r)[..., :r].transpose(-1, -2)
         stop = torch.sigmoid(self.stop_proj(torch.cat([x, context_vec], dim=-1)))[..., 0]
-        carry = (attn_hidden, rnn1_state, rnn2_state, context_vec, cumulative)
+        return mels, stop
+
+    def step(self, encoder_seq, encoder_seq_proj, char_mask, carry, prenet_in,
+             r: int, generator=None):
+        """One generation step (no zoneout)."""
+        prenet_out = self.prenet(prenet_in, generator)
+        carry, (x, context_vec, scores) = self.step_core(
+            encoder_seq, encoder_seq_proj, char_mask, carry, prenet_out)
+        mels, stop = self.project_out(x, context_vec, r)
         return carry, (mels, scores, stop)
+
+    def forward(self, encoder_seq, encoder_seq_proj, char_mask, carry, prenet_outs,
+                zo_masks: Optional[torch.Tensor], loc, remat: bool = False):
+        """The teacher-forced recurrence: ``step_core`` over the S PreNet
+        outputs (S, B, P), with zoneout masks (S, 2, B, lstm) or None; with
+        ``remat`` each step is recomputed in the backward pass. → the
+        stacked (x, context_vec, scores) of all steps."""
+        step = self.step_core
+        if remat:
+            def step(*args):
+                return checkpoint(self.step_core, *args, use_reentrant=False)
+        xs, contexts, scores = [], [], []
+        for s in range(prenet_outs.shape[0]):
+            masks = (zo_masks[s, 0], zo_masks[s, 1]) if zo_masks is not None else None
+            carry, (x, ctx, sc) = step(encoder_seq, encoder_seq_proj, char_mask, carry,
+                                       prenet_outs[s], masks, loc)
+            xs.append(x)
+            contexts.append(ctx)
+            scores.append(sc)
+        return torch.stack(xs), torch.stack(contexts), torch.stack(scores)
 
 
 class Tacotron(nn.Module):
-    """Full model, inference methods (``encode``, ``decode_step``,
-    ``postnet_apply``, ``init_carry``)."""
+    """Full model: the teacher-forced ``forward`` and the inference methods
+    (``encode``, ``decode_step``, ``postnet_apply``, ``init_carry``)."""
 
     def __init__(self, c):
         super().__init__()
@@ -299,12 +383,12 @@ class Tacotron(nn.Module):
         self.project_dims = (c.encoder_dims + c.speaker_embedding_size
                              + (c.gst_E if c.use_gst else 0))
         self.encoder = TacotronEncoder(c)
-        self.encoder_proj = nn.Linear(self.project_dims, c.decoder_dims, bias=False)
+        self.encoder_proj = Dense(self.project_dims, c.decoder_dims, bias=False)
         self.gst = GlobalStyleToken(c) if c.use_gst else None
         self.decoder = TacotronDecoderCell(c, self.project_dims)
         self.postnet = CBHG(c.postnet_K, c.n_mels, c.postnet_dims,
                             (c.postnet_dims, c.fft_bins), c.num_highways)
-        self.post_proj = nn.Linear(c.postnet_dims, c.fft_bins, bias=False)
+        self.post_proj = Dense(c.postnet_dims, c.fft_bins, bias=False)
 
     def encode(self, texts, speaker_embedding, style_idx: int = 0,
                style_mode: str = "token", generator=None):
@@ -330,10 +414,63 @@ class Tacotron(nn.Module):
         char_mask = (texts != 0).to(encoder_seq.dtype)
         return encoder_seq, self.encoder_proj(encoder_seq), char_mask
 
+    def forward(self, texts, mels, speaker_embedding, r: int,
+                generator: Optional[torch.Generator] = None,
+                zo_masks: Optional[torch.Tensor] = None):
+        """Teacher-forced forward. texts (B, T_text) int; mels (B, T_mel, M)
+        with T_mel % r == 0; ``generator`` draws the PreNet dropout (off
+        without one) and, in training mode, the zoneout masks unless
+        ``zo_masks`` (S, 2, B, lstm) bool hands them in.
+
+        Returns (mel_out (B, T_mel, M), postnet_out (B, T_mel, fft_bins),
+        attn (B, S, T_text), stop (B, T_mel))."""
+        c = self.cfg
+        b, t_mel, m = mels.shape
+        if t_mel % r:
+            raise ValueError(f"mel length {t_mel} not divisible by r={r}")
+        steps = t_mel // r
+        dev = mels.device
+
+        encoder_seq, encoder_seq_proj, char_mask = self.encode(
+            texts, speaker_embedding, style_mode="train", generator=generator)
+
+        # prenet input at group s is mel frame s*r - 1; the go frame is
+        # float32, as in the JAX package, and promotes the decoder
+        go_frame = torch.zeros((b, 1, m), device=dev)
+        prenet_ins = torch.cat([go_frame, mels[:, r - 1::r, :][:, : steps - 1]], dim=1)
+        prenet_outs = self.decoder.prenet(prenet_ins.transpose(0, 1), generator)  # (S, B, P)
+        if not self.training:
+            zo_masks = None
+        elif zo_masks is None:
+            zo_masks = torch.rand((steps, 2, b, c.lstm_dims), generator=generator,
+                                  device=dev) < 0.1
+
+        # the float32 carries promote every product of the recurrence to
+        # float32: under a bf16 policy the decoder's weights (and the LSA's
+        # composed kernel, formed in bf16 as JAX forms it) are cast once
+        # here, not once per step (XLA hoists the same converts out of the
+        # scan), so the backward keeps one float32 copy, not S
+        loc = tuple(t.float() for t in self.decoder.attn_net.location_kernel())
+        loop_args = (encoder_seq, encoder_seq_proj, char_mask,
+                     self.init_carry(b, texts.shape[1], dev), prenet_outs, zo_masks, loc,
+                     self.training and c.get("remat_decoder", False))
+        params = dict(self.decoder.named_parameters())
+        if any(p.dtype != torch.float32 for p in params.values()):
+            xs, contexts, scores = functional_call(
+                self.decoder, {k: p.float() for k, p in params.items()}, loop_args)
+        else:
+            xs, contexts, scores = self.decoder(*loop_args)
+        mel_groups, stops = self.decoder.project_out(xs, contexts, r)
+
+        mel_out = mel_groups.transpose(0, 1).reshape(b, steps * r, m)
+        attn = scores.transpose(0, 1)
+        stop_out = stops.transpose(0, 1).repeat_interleave(r, dim=1)
+        return mel_out, self.postnet_apply(mel_out), attn, stop_out
+
     def decode_step(self, encoder_seq, encoder_seq_proj, char_mask, carry, prenet_in,
                     r: int, generator=None):
-        return self.decoder(encoder_seq, encoder_seq_proj, char_mask, carry, prenet_in,
-                            r, generator)
+        return self.decoder.step(encoder_seq, encoder_seq_proj, char_mask, carry, prenet_in,
+                                 r, generator)
 
     def postnet_apply(self, mel_out):
         return self.post_proj(self.postnet(mel_out))

@@ -1,13 +1,22 @@
-"""WaveRNN (fatchord alternating) vocoder, inference in RAW mode.
+"""WaveRNN (fatchord alternating) vocoder, inference in RAW and MOL mode.
 
 Port of ``mockingbird_tpu/models/vocoder/wavernn.py``: MelResNet with running
-statistics + Stretch2d upsampler, 2×GRU + 3×FC → 512-class RAW softmax,
-batched fold/overlap generation with equal-power crossfade, mu-law +
-de-emphasis. Generation always takes the fused path of the JAX package:
-upsample → fold on the device → the sampler of ``ops/wavernn_sample.py``
-(the Hopper kernel on a card, its plain version on the CPU), with the mel
-bucketed to 100-frame multiples and folds of 2000 + 2·200 samples.
-The MOL head and the unbatched generator wait for a later slice.
+statistics + Stretch2d upsampler, 2×GRU + 3×FC → a 512-class RAW softmax or
+the 30-parameter mixture-of-logistics (MOL) head, batched fold/overlap
+generation with equal-power crossfade, mu-law (RAW) + de-emphasis.
+
+Two generators, as in the JAX package:
+  * RAW mode takes the fused path by default: upsample → fold on the device
+    → the sampler of ``ops/wavernn_sample.py`` (the Hopper kernel on a card,
+    its plain version on the CPU), with the mel bucketed to 100-frame
+    multiples and folds of 2000 + 2·200 samples;
+  * MOL mode, and RAW when the caller asks ``use_sampler=False`` (the JAX
+    package's ``use_pallas=False``, its CPU path), take the step-by-step
+    generator, the port of ``_build_gen_fn``: a Python loop over the fold
+    width on the device, every fold one row of each step's products, one
+    sample fed back per step, folds of ``gen_target`` + 2·``gen_overlap``
+    (8000 + 2·400). It runs as plain PyTorch ops on a card too: the JAX
+    package has no kernel for it either (a ``lax.scan``).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from ...dsp import decode_mu_law, inv_preemphasis_np
 from ...ops.wavernn_sample import pack_wavernn_weights, wavernn_sample
 from ...weights import load_flax, load_npz
 from ..layers import FusedGRUCell
+from .distribution import sample_from_discretized_mix_logistic
 
 
 def wavernn_config() -> Config:
@@ -121,25 +131,38 @@ class _RNN(nn.Module):
 
 
 class WaveRNN(nn.Module):
-    """Core net: the upsampler and the recurrent/FC weights the sampler uses."""
+    """Core net: the upsampler and the recurrent/FC weights; ``gen_step``
+    is one autoregressive step."""
 
     def __init__(self, c):
         super().__init__()
-        if c.mode != "RAW":
-            raise NotImplementedError(f"WaveRNN mode {c.mode!r}: the port has RAW mode only")
-        self.n_classes = 2 ** c.bits
-        aux_dims = c.res_out_dims // 4
+        if c.mode not in ("RAW", "MOL"):
+            raise ValueError(f"WaveRNN mode {c.mode!r}: 'RAW' or 'MOL'")
+        self.n_classes = 2 ** c.bits if c.mode == "RAW" else 30
+        self.aux_dims = c.res_out_dims // 4
         self.upsample = UpsampleNetwork(c)
-        self.I = nn.Linear(c.feat_dims + aux_dims + 1, c.rnn_dims)
+        self.I = nn.Linear(c.feat_dims + self.aux_dims + 1, c.rnn_dims)
         self.rnn1 = _RNN(FusedGRUCell(c.rnn_dims, c.rnn_dims))
-        self.rnn2 = _RNN(FusedGRUCell(c.rnn_dims + aux_dims, c.rnn_dims))
-        self.fc1 = nn.Linear(c.rnn_dims + aux_dims, c.fc_dims)
-        self.fc2 = nn.Linear(c.fc_dims + aux_dims, c.fc_dims)
+        self.rnn2 = _RNN(FusedGRUCell(c.rnn_dims + self.aux_dims, c.rnn_dims))
+        self.fc1 = nn.Linear(c.rnn_dims + self.aux_dims, c.fc_dims)
+        self.fc2 = nn.Linear(c.fc_dims + self.aux_dims, c.fc_dims)
         self.fc3 = nn.Linear(c.fc_dims, self.n_classes)
 
     def upsample_features(self, mels):
         """Eval-mode conditioning features for generation."""
         return self.upsample(mels)
+
+    def gen_step(self, x, m_t, a1_t, a2_t, a3_t, a4_t, h1, h2):
+        """One step, all (B, ·): previous sample ``x`` (B,), conditioning,
+        hidden states → (logits (B, n_classes), h1, h2)."""
+        u = self.I(torch.cat([x[:, None], m_t, a1_t], dim=1))
+        h1 = self.rnn1.cell(h1, u)
+        u = u + h1
+        h2 = self.rnn2.cell(h2, torch.cat([u, a2_t], dim=1))
+        u = u + h2
+        u = torch.relu(self.fc1(torch.cat([u, a3_t], dim=1)))
+        u = torch.relu(self.fc2(torch.cat([u, a4_t], dim=1)))
+        return self.fc3(u), h1, h2
 
 
 # ---------------------------------------------------------------------------
@@ -195,8 +218,10 @@ class WaveRnnVocoder:
 
     Weights come from ``variables`` (the flax tree, see ``weights.py``), from
     an ``.npz`` export at ``model_fpath`` (which must exist), or else from
-    ``seed``. The sampler
-    runs with bf16 weights, as the JAX package's kernel does."""
+    ``seed``; ``load`` swaps them later. The fused sampler runs with bf16
+    weights, as the JAX package's kernel does, packed from the model on
+    first use (``packed``); ``load`` drops them, so the sampler never runs
+    with stale weights."""
 
     def __init__(self, model_fpath: Optional[Union[str, Path]] = None,
                  cfg=None, verbose: bool = True, seed: int = 0,
@@ -210,16 +235,23 @@ class WaveRnnVocoder:
                              f"factorise hop {self.cfg.hop_size}")
         with seeded(seed):
             self.model = WaveRNN(self.cfg)
-        if model_fpath is not None:
-            variables = load_npz(model_fpath)
-            if verbose:
-                print(f"Loaded WaveRNN from {model_fpath}")
-        elif variables is None and verbose:
-            print("WaveRNN: fresh (untrained) weights")
         if variables is not None:
             load_flax(self.model, variables)
         self.model.to(self.device).eval()
-        self.packed = pack_wavernn_weights(self.model)
+        self.packed: Optional[dict] = None
+        if model_fpath is not None:
+            self.load(model_fpath, verbose)
+        elif variables is None and verbose:
+            print("WaveRNN: fresh (untrained) weights")
+
+    def load(self, model_fpath: Union[str, Path], verbose: bool = True) -> None:
+        """(Re)load the weights of the ``.npz`` export at ``model_fpath``
+        (which must exist) and drop the sampler's packed weights, which are
+        packed anew from the new weights on the next sampler call."""
+        load_flax(self.model, load_npz(model_fpath))
+        self.packed = None
+        if verbose:
+            print(f"Loaded WaveRNN from {model_fpath}")
 
     @staticmethod
     def _fold_plan(t_up: int, target: int, overlap: int):
@@ -233,24 +265,64 @@ class WaveRnnVocoder:
         pad = max(int(starts[-1]) + width - t_up, 0) if num_folds else 0
         return starts, width, pad
 
+    def _fold(self, mel_bp: np.ndarray, target: int, overlap: int):
+        """mel_bp (B, T+2p, M) → the upsampled conditioning folded on the
+        device: mels (B·folds, width, M), aux (B·folds, width, 4·aux_d)."""
+        mels_up, aux = self.model.upsample_features(torch.from_numpy(mel_bp).to(self.device))
+        starts, width, pad = self._fold_plan(mels_up.shape[1], target, overlap)
+        idx = torch.from_numpy(starts[:, None] + np.arange(width)[None, :]).to(self.device)
+        mels_up = F.pad(mels_up, (0, 0, 0, pad))
+        aux = F.pad(aux, (0, 0, 0, pad))
+        b, n = mels_up.shape[0], len(starts)
+        return (mels_up[:, idx].reshape(b * n, width, mels_up.shape[-1]),
+                aux[:, idx].reshape(b * n, width, aux.shape[-1]))
+
     @torch.no_grad()
     def _sample(self, mel_bp: np.ndarray, target: int, overlap: int, seed: int,
                 greedy: bool) -> np.ndarray:
         """mel_bp (B, T+2p, M) → labels (B, folds, width): upsample → fold
         on the device → the sampler; only the labels come back."""
-        mels_up, aux = self.model.upsample_features(
-            torch.from_numpy(mel_bp).to(self.device))
-        starts, width, pad = self._fold_plan(mels_up.shape[1], target, overlap)
-        idx = torch.from_numpy(starts[:, None] + np.arange(width)[None, :]).to(self.device)
-        num_folds = len(starts)
-        mels_up = F.pad(mels_up, (0, 0, 0, pad))
-        aux = F.pad(aux, (0, 0, 0, pad))
-        b = mels_up.shape[0]
-        mels_f = mels_up[:, idx].reshape(b * num_folds, idx.shape[1], mels_up.shape[-1])
-        aux_f = aux[:, idx].reshape(b * num_folds, idx.shape[1], aux.shape[-1])
+        if self.packed is None:
+            self.packed = pack_wavernn_weights(self.model)
+        mels_f, aux_f = self._fold(mel_bp, target, overlap)
         labels = wavernn_sample(self.packed, mels_f, aux_f, seed,
                                 self.model.n_classes, greedy=greedy)
-        return labels.reshape(b, num_folds, -1).cpu().numpy()
+        return labels.reshape(mel_bp.shape[0], -1, labels.shape[-1]).cpu().numpy()
+
+    @torch.no_grad()
+    def generate(self, mels_f: torch.Tensor, aux_f: torch.Tensor, seed: int = 0,
+                 greedy: bool = False, draws=None) -> torch.Tensor:
+        """The step-by-step generator over folded conditioning: mels_f
+        (F, L, M), aux_f (F, L, 4·aux_d) → samples (F, L) in [-1, 1]. Per
+        step: ``gen_step`` on all folds, then a sample fed back — RAW:
+        Gumbel-max over the logits (argmax with ``greedy``), mapped to
+        [-1, 1]; MOL: ``sample_from_discretized_mix_logistic``. The draws
+        come from a generator seeded with ``seed``, or are handed in (the
+        JAX package's, for parity): RAW, Gumbel noise (L, F, n_classes);
+        MOL, (Gumbel noise (L, F, 10), uniforms (L, F))."""
+        model, c = self.model, self.cfg
+        n_f, length, _ = mels_f.shape
+        d = model.aux_dims
+        a1, a2, a3, a4 = (aux_f[..., i * d:(i + 1) * d] for i in range(4))
+        gen = torch.Generator(device=mels_f.device).manual_seed(seed) if draws is None else None
+        x = mels_f.new_zeros(n_f)
+        h1 = h2 = mels_f.new_zeros(n_f, c.rnn_dims)
+        out = mels_f.new_empty(n_f, length)
+        for t in range(length):
+            logits, h1, h2 = model.gen_step(x, mels_f[:, t], a1[:, t], a2[:, t], a3[:, t],
+                                            a4[:, t], h1, h2)
+            if c.mode == "RAW":
+                if not greedy:
+                    logits = logits + (draws[t] if draws is not None else -torch.log(-torch.log(
+                        torch.rand(logits.shape, generator=gen, device=logits.device)
+                        .clamp(min=torch.finfo(logits.dtype).tiny))))
+                x = 2.0 * torch.argmax(logits, dim=-1).float() / (model.n_classes - 1.0) - 1.0
+            else:
+                step_draws = None if draws is None else (draws[0][t][:, None], draws[1][t][:, None])
+                x = sample_from_discretized_mix_logistic(logits[:, None, :], gen,
+                                                         draws=step_draws)[:, 0]
+            out[:, t] = x
+        return out
 
     def _prepare(self, mel: np.ndarray, normalize: bool) -> np.ndarray:
         mel = np.asarray(mel, np.float32)
@@ -270,17 +342,38 @@ class WaveRnnVocoder:
 
     def infer_waveform(self, mel: np.ndarray, normalize: bool = True,
                        target: Optional[int] = None, overlap: Optional[int] = None,
-                       seed: int = 0, greedy: bool = False) -> np.ndarray:
-        return self.infer_waveform_batch([mel], normalize, target, overlap, seed, greedy)[0]
+                       seed: int = 0, greedy: bool = False,
+                       use_sampler: Optional[bool] = None, draws=None) -> np.ndarray:
+        """One mel → waveform. ``use_sampler`` (default: RAW mode) takes the
+        fused sampler path; otherwise the step-by-step ``generate`` over
+        folds of ``gen_target`` + 2·``gen_overlap`` of the unbucketed mel,
+        with ``draws`` handed to it when given."""
+        cfg = self.cfg
+        if use_sampler is None:
+            use_sampler = cfg.mode == "RAW"
+        if use_sampler:
+            return self.infer_waveform_batch([mel], normalize, target, overlap, seed, greedy)[0]
+        target = target or cfg.gen_target
+        overlap = overlap or cfg.gen_overlap
+        mel = self._prepare(mel, normalize)
+        wave_len = (mel.shape[0] - 1) * cfg.hop_size
+        mel_p = np.pad(mel, ((cfg.pad, cfg.pad), (0, 0)))[None]
+        with torch.no_grad():
+            mels_f, aux_f = self._fold(mel_p, target, overlap)
+        samples = self.generate(mels_f, aux_f, seed, greedy, draws)
+        return self._finalize(samples.cpu().numpy().astype(np.float64), overlap, wave_len)
 
     def infer_waveform_batch(self, mels, normalize: bool = True,
                              target: Optional[int] = None, overlap: Optional[int] = None,
                              seed: int = 0, greedy: bool = False,
                              max_lanes: int = 256) -> list:
-        """Batch of mels → list of waveforms: every utterance's folds of a
-        group ride one sampler launch; ``max_lanes`` caps the folds of one
-        launch."""
+        """Batch of mels → list of waveforms. RAW: every utterance's folds of
+        a group ride one sampler launch; ``max_lanes`` caps the folds of one
+        launch. MOL: ``infer_waveform`` per mel, each with ``seed``, as the
+        JAX package does."""
         cfg = self.cfg
+        if cfg.mode != "RAW":
+            return [self.infer_waveform(m, normalize, target, overlap, seed) for m in mels]
         target = target or cfg.get("gen_target_tpu", 2000)
         overlap = overlap or cfg.get("gen_overlap_tpu", 200)
         preps = [self._prepare(m, normalize) for m in mels]
@@ -298,10 +391,11 @@ class WaveRnnVocoder:
         return out
 
     def _finalize(self, samples: np.ndarray, overlap: int, wave_len: int) -> np.ndarray:
-        """Crossfade-unfold + mu-law decode + de-emphasis + trim + fade-out."""
+        """Crossfade-unfold + mu-law decode (RAW) + de-emphasis + trim +
+        fade-out."""
         cfg = self.cfg
         output = xfade_and_unfold(samples, overlap)
-        if cfg.mu_law:
+        if cfg.mu_law and cfg.mode == "RAW":
             output = decode_mu_law(output, 2 ** cfg.bits, False)
         if cfg.apply_preemphasis:
             output = inv_preemphasis_np(output, cfg.preemphasis)

@@ -1,9 +1,10 @@
 """Training logs without TensorBoard.
 
 The port's counterpart of ``mockingbird_tpu/train/logging.py``'s
-``TrainLogger``, reduced to what the VITS trainer calls: ``scalars`` append
-one JSON line per step to ``scalars.jsonl``, ``audio`` writes a 16-bit wav
-and ``image`` an ``.npy`` array, all under ``log_dir``.
+``TrainLogger``, with what the VITS and Tacotron trainers call: ``scalars``
+append one JSON line per step to ``scalars.jsonl``, ``audio`` writes a 16-bit
+wav, ``image`` an ``.npy`` array and ``alignment`` an attention map scaled to
+[0, 1] as one, all under ``log_dir``.
 """
 from __future__ import annotations
 
@@ -35,3 +36,7 @@ class TrainLogger:
     def image(self, step: int, tag: str, img: np.ndarray) -> None:
         """img (H, W) or (H, W, C) in [0, 1]."""
         np.save(self._path(step, tag, ".npy"), np.asarray(img, np.float32))
+
+    def alignment(self, step: int, tag: str, attn: np.ndarray) -> None:
+        a = np.asarray(attn, np.float32)
+        self.image(step, tag, a / max(float(a.max()), 1e-6))

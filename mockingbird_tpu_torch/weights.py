@@ -147,14 +147,12 @@ def _load(m: nn.Module, p: _Tree, s: Optional[_Tree]) -> None:
         bn = _load_gru(m.wi.weight, m.wi.bias, m.wh.weight, p)
         _set(m.bn, bn, p.path + "/hn/bias")
     elif isinstance(m, GRULayer):
-        g = m.gru
-        bn = _load_gru(g.weight_ih_l0, g.bias_ih_l0, g.weight_hh_l0, p)
-        _set(g.bias_hh_l0, np.concatenate([np.zeros(2 * bn.size, np.float32), bn]),
-             p.path + "/hn/bias")
+        bn = _load_gru(m.weight_ih_l0, m.bias_ih_l0, m.weight_hh_l0, p)
+        _set(m.bias_hn, bn, p.path + "/hn/bias")
     elif isinstance(m, FusedLSTMLayer):
-        _load_lstm(m.lstm.weight_ih_l0, m.lstm.weight_hh_l0, m.lstm.bias_hh_l0, p)
+        _load_lstm(m.weight_ih_l0, m.weight_hh_l0, m.bias_hh_l0, p)
     elif isinstance(m, LSTMCell):
-        _load_lstm(m.cell.weight_ih, m.cell.weight_hh, m.cell.bias_hh, p)
+        _load_lstm(m.weight_ih, m.weight_hh, m.bias_hh, p)
     else:
         for name, prm in m.named_parameters(recurse=False):
             _set(prm, p.leaf(name), f"{p.path}/{name}")
@@ -184,6 +182,106 @@ def load_flax(module: nn.Module, tree: Dict) -> nn.Module:
         raise WeightMismatch(f"leaves no module took: {sorted(extra)[:8]}"
                              f"{' ...' if len(extra) > 8 else ''}")
     return module
+
+
+# ---------------------------------------------------------------------------
+# The inverse: a port module → its flax tree
+# ---------------------------------------------------------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy().copy()
+
+
+def _gates(w: torch.Tensor, names, bias: Optional[torch.Tensor] = None) -> Dict:
+    """Fused (n·h, in) weight (+ (n·h,) bias) → flax per-gate {kernel(, bias)}."""
+    ks = np.split(_np(w).T, len(names), axis=-1)
+    bs = np.split(_np(bias), len(names)) if bias is not None else [None] * len(names)
+    return {n: ({"kernel": k} if b is None else {"kernel": k, "bias": b})
+            for n, k, b in zip(names, ks, bs)}
+
+
+def _check_zero_slot(t: torch.Tensor, where: str) -> None:
+    if bool(t.detach().ne(0).any()):
+        raise WeightMismatch(f"{where}: a bias slot flax does not have is not zero")
+
+
+def _dump_conv(m: nn.Module) -> Dict:
+    w = _np(m.weight)
+    if isinstance(m, ConvTranspose1d):
+        k = np.transpose(np.flip(w, -1), (2, 0, 1))
+    else:
+        k = np.moveaxis(w, (0, 1), (-1, -2))
+    out = {"kernel": np.ascontiguousarray(k)}
+    if m.bias is not None:
+        out["bias"] = _np(m.bias)
+    return out
+
+
+def _dump(m: nn.Module, path: str):
+    """(params, batch_stats) subtrees of ``m``, the inverse of ``_load``."""
+    if isinstance(m, (Conv1d, Conv2d, ConvTranspose1d, nn.Conv1d, nn.Conv2d)):
+        return _dump_conv(m), None
+    if isinstance(m, nn.LayerNorm):
+        return {"scale": _np(m.weight), "bias": _np(m.bias)}, None
+    if isinstance(m, nn.Linear):
+        p = {"kernel": _np(m.weight).T.copy()}
+        if m.bias is not None:
+            p["bias"] = _np(m.bias)
+        return p, None
+    if isinstance(m, nn.modules.batchnorm._BatchNorm):
+        return ({"scale": _np(m.weight), "bias": _np(m.bias)},
+                {"mean": _np(m.running_mean), "var": _np(m.running_var)})
+    if isinstance(m, nn.Embedding):
+        return {"embedding": _np(m.weight)}, None
+    if isinstance(m, (FusedGRUCell, GRULayer)):
+        if isinstance(m, GRULayer):
+            _check_zero_slot(m.bias_hh_rz, path + "/hr,hz/bias")
+            w_ih, b_ih, w_hh, bn = m.weight_ih_l0, m.bias_ih_l0, m.weight_hh_l0, m.bias_hn
+        else:
+            w_ih, b_ih, w_hh, bn = m.wi.weight, m.wi.bias, m.wh.weight, m.bn
+        p = {**_gates(w_ih, ("ir", "iz", "in"), b_ih), **_gates(w_hh, ("hr", "hz", "hn"))}
+        p["hn"]["bias"] = _np(bn)
+        return p, None
+    if isinstance(m, (FusedLSTMLayer, LSTMCell)):
+        if isinstance(m, LSTMCell):
+            _check_zero_slot(m.bias_ih, path + "/i*/bias")
+            w_ih, w_hh, b_hh = m.weight_ih, m.weight_hh, m.bias_hh
+        else:
+            _check_zero_slot(m.bias_ih_l0, path + "/i*/bias")
+            w_ih, w_hh, b_hh = m.weight_ih_l0, m.weight_hh_l0, m.bias_hh_l0
+        return {**_gates(w_ih, ("ii", "if", "ig", "io")),
+                **_gates(w_hh, ("hi", "hf", "hg", "ho"), b_hh)}, None
+    params: Dict = {name: _np(prm) for name, prm in m.named_parameters(recurse=False)}
+    stats: Dict = {}
+    for name, child in m.named_children():
+        if not any(True for _ in child.parameters()):
+            continue
+        if getattr(child, "weight_norm", False):
+            conv = _dump_conv(child)
+            params[f"{name}_conv"] = conv
+            params[name] = {f"{name}_conv/kernel/scale": _np(child.scale)}
+            continue
+        p, s = _dump(child, f"{path}/{name}")
+        params[name] = p
+        if s:
+            stats[name] = s
+    return params, stats or None
+
+
+def to_flax(module: nn.Module) -> Dict:
+    """The inverse of ``load_flax``: ``module``'s parameters and BatchNorm
+    running statistics as the flax tree ``{"params", "batch_stats"}`` of
+    float32 numpy arrays (``batch_stats`` only where the module has any).
+    Raises ``WeightMismatch`` if a bias slot flax does not have is not
+    zero."""
+    params, stats = _dump(module, "params")
+    return {"params": params, **({"batch_stats": stats} if stats else {})}
+
+
+def save_npz(path: Union[str, Path], tree: Dict) -> None:
+    """Write a tree as the ``.npz`` export ``load_npz`` reads (the port's
+    counterpart of the JAX package's ``save_single``)."""
+    np.savez(path, **flatten_tree(tree))
 
 
 def flatten_tree(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -347,3 +347,141 @@ def test_ppg2mel_teacher_forced_on_card_matches_cpu(card, width):
         got = gpu(*(torch.from_numpy(x).to(card) for x in inputs))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4)
+
+
+TACO_SMALL = dict(embed_dims=32, encoder_dims=16, decoder_dims=16, postnet_dims=32,
+                  lstm_dims=32, gst_E=16, gst_num_heads=4, gst_ref_filters=(4, 4),
+                  speaker_embedding_size=8, max_r=4, n_mels=20, fft_bins=20)
+
+
+def _taco_batch(cfg, b=2, t_text=32, t_mel=40, seed=0):
+    rng = np.random.RandomState(seed)
+    texts = np.zeros((b, t_text), np.int64)
+    for i, n in enumerate(rng.randint(8, t_text + 1, b)):
+        texts[i, :n] = rng.randint(1, 75, n)
+    spk = rng.randn(b, cfg.speaker_embedding_size).astype(np.float32)
+    stop = np.zeros((b, t_mel), np.float32)
+    stop[:, -3:] = 1
+    return dict(texts=texts, embeds=spk / np.linalg.norm(spk, axis=1, keepdims=True),
+                mels=np.clip(rng.randn(b, t_mel, cfg.n_mels) * 2, -4, 4).astype(np.float32),
+                stop=stop)
+
+
+def _taco_pair(card, width):
+    from mockingbird_tpu_torch.models.tacotron import Tacotron, tacotron_config
+    cfg = tacotron_config().merge(TACO_SMALL if width == "small" else {})
+    torch.manual_seed(0)
+    cpu = Tacotron(cfg).train()
+    gpu = Tacotron(cfg).to(card).train()
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, cpu, gpu
+
+
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_tacotron_f32_step_on_card_matches_cpu(card, width):
+    """One f32 training step of the seeded model, dropout and zoneout off,
+    BatchNorm in batch-statistics mode: on the card (TF32 off) the loss
+    within 1e-5 relative of the CPU's, the gradients within 1e-4 relative
+    L2 at small width and 2e-3 at full width (measured 1.5e-6 and 1.2e-3;
+    at full width only a run with cuDNN on is that far from the CPU, an
+    open question, PERF.md §7: ``chip_smoke.py``'s hold prints the same
+    comparison with cuDNN off). At small width also the update of the clip
+    and one Adam step: within 1% of the learning rate of the CPU's on at
+    least 99.9% of the parameters' elements. Adam's first step is
+    lr·g/(|g| + 1e-8), the sign of the gradient, so an element whose
+    gradient is within the card-CPU difference of 0 moves by ±lr on either
+    side (the GST reference encoder's conv biases, before a BatchNorm in
+    batch-statistics mode, have no gradient in exact arithmetic); at full
+    width, with gradients 1e-3 apart, 1.3% of the elements did."""
+    import importlib
+    ttrain = importlib.import_module("mockingbird_tpu_torch.models.tacotron.train")
+    from mockingbird_tpu_torch.train.precision import Policy
+    cfg, cpu, gpu = _taco_pair(card, width)
+    host = _taco_batch(cfg)
+    zo = torch.zeros((20, 2, 2, cfg.lstm_dims), dtype=torch.bool)
+    out = {}
+    for name, m, dev in (("cpu", cpu, "cpu"), ("card", gpu, card)):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        loss, _, _ = ttrain.loss_of(m, b, 2, Policy.from_name("fp32"), zo_masks=zo.to(dev))
+        loss.backward()
+        grads = [p.grad.detach().cpu().double() for p in m.parameters()]
+        m.zero_grad()
+        before = [p.detach().cpu().clone() for p in m.parameters()]
+        step = ttrain.make_train_step(m, ttrain.make_optimizer(m, 1e-3), 2, "fp32")
+        step(b, None, zo.to(dev))
+        update = [p.detach().cpu().double() - q for p, q in zip(m.parameters(), before)]
+        out[name] = (loss.item(), grads, update)
+
+    def rel_l2(got, want):
+        num = sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want))
+        return (num / sum(float((b ** 2).sum()) for b in want)) ** 0.5
+    (lc, gc, uc), (lg, gg, ug) = out["cpu"], out["card"]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    assert rel_l2(gg, gc) <= (1e-4 if width == "small" else 2e-3)
+    if width == "small":
+        agree = sum(int(((a - b).abs() <= 1e-5).sum()) for a, b in zip(ug, uc))
+        total = sum(u.numel() for u in uc)
+        assert agree >= 0.999 * total, f"{total - agree} of {total} updates differ"
+
+
+def test_tacotron_bf16_step_on_card(card):
+    """The trainer's default precision on the card at small width: the
+    bf16 loss within 1e-2 relative of the CPU's bf16 loss (other kernels,
+    other roundings), finite gradients, and the bias slots flax lacks still
+    exactly 0 after the step."""
+    import importlib
+    ttrain = importlib.import_module("mockingbird_tpu_torch.models.tacotron.train")
+    from mockingbird_tpu_torch.train.precision import Policy
+    cfg, cpu, gpu = _taco_pair(card, "small")
+    host = _taco_batch(cfg, seed=1)
+    zo = torch.from_numpy(np.random.RandomState(2).rand(20, 2, 2, cfg.lstm_dims) < 0.1)
+    losses = []
+    for m, dev in ((cpu, "cpu"), (gpu, card)):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        loss, _, _ = ttrain.loss_of(m, b, 2, Policy.from_name("bf16"), zo_masks=zo.to(dev))
+        losses.append(loss.item())
+    assert losses[1] == pytest.approx(losses[0], rel=1e-2)
+    b = {k: torch.from_numpy(v).to(card) for k, v in host.items()}
+    ttrain.make_train_step(gpu, ttrain.make_optimizer(gpu, 1e-3), 2, "bf16")(
+        b, torch.Generator(device=card).manual_seed(0))
+    assert all(bool(torch.isfinite(p.grad).all()) for p in gpu.parameters())
+    for name, buf in gpu.named_buffers():
+        if name.endswith(("bias_hh_rz", "bias_ih")):
+            assert not bool(buf.ne(0).any()), name
+
+
+def test_mol_loss_and_sampler_on_card_match_cpu(card):
+    """The mixture-of-logistics loss and the sampler with handed-in draws:
+    the card within 1e-5 (loss, relative) and 1e-6 (samples) of the CPU."""
+    from mockingbird_tpu_torch.models.vocoder import distribution as dist
+    rng = np.random.RandomState(0)
+    y_hat = torch.from_numpy(rng.randn(4, 300, 30).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-1, 1, (4, 300, 1)).astype(np.float32))
+    draws = (-torch.log(-torch.log(torch.from_numpy(rng.uniform(1e-6, 1, (4, 300, 10))
+                                                    .astype(np.float32)))),
+             torch.from_numpy(rng.uniform(1e-5, 1 - 1e-5, (4, 300)).astype(np.float32)))
+    want = dist.discretized_mix_logistic_loss(y_hat, y)
+    got = dist.discretized_mix_logistic_loss(y_hat.to(card), y.to(card))
+    assert got.item() == pytest.approx(want.item(), rel=1e-5)
+    want = dist.sample_from_discretized_mix_logistic(y_hat, draws=draws)
+    got = dist.sample_from_discretized_mix_logistic(y_hat.to(card),
+                                                    draws=tuple(d.to(card) for d in draws))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+
+
+def test_mol_generator_on_card_matches_cpu(card):
+    """``WaveRnnVocoder.generate`` in MOL mode at small width, 3 folds x 200
+    steps with handed-in draws: the card (TF32 off) within 1e-4 of the
+    CPU."""
+    from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder
+    cpu = WaveRnnVocoder(cfg=dict(SMALL, mode="MOL"), verbose=False, seed=0, device="cpu")
+    gpu = WaveRnnVocoder(cfg=dict(SMALL, mode="MOL"), verbose=False, seed=0, device=card)
+    rng = np.random.RandomState(1)
+    mels = torch.from_numpy(rng.randn(3, 200, 80).astype(np.float32) * 0.5)
+    aux = torch.from_numpy(rng.randn(3, 200, 16).astype(np.float32) * 0.5)
+    draws = (-torch.log(-torch.log(torch.from_numpy(rng.uniform(1e-6, 1, (200, 3, 10))
+                                                    .astype(np.float32)))),
+             torch.from_numpy(rng.uniform(1e-5, 1 - 1e-5, (200, 3)).astype(np.float32)))
+    want = cpu.generate(mels, aux, draws=draws)
+    got = gpu.generate(mels.to(card), aux.to(card), draws=tuple(d.to(card) for d in draws))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)

@@ -92,7 +92,7 @@ def test_encoder_export_carries_across():
     tree = _export("encoder_run/encoder.ckpt")
     model = load_flax(SpeakerEncoder(), tree["params"]["model"])
     w = tree["params"]["model"]["lstm_2"]["hg"]["kernel"]
-    got = model.lstm_2.lstm.weight_hh_l0[512:768].T.detach().numpy()
+    got = model.lstm_2.weight_hh_l0[512:768].T.detach().numpy()
     np.testing.assert_array_equal(got, np.asarray(w, np.float32))
 
 
@@ -358,3 +358,29 @@ def test_ppg2mel_export_carries_across(tmp_path):
     for name, t in model.state_dict().items():
         assert torch.equal(vc.model.state_dict()[name], t), name
 
+
+
+def test_trainer_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The Tacotron trainer's entry points ask for ``cuda`` by default and
+    raise without a card, before touching any file."""
+    from mockingbird_tpu_torch.models.tacotron import (create_embeddings, preprocess_dataset,
+                                                       run_gta_synthesis, train)
+    calls = {train: ("run", tmp_path, tmp_path), run_gta_synthesis: ("run", tmp_path, tmp_path),
+             preprocess_dataset: (tmp_path, tmp_path / "out"), create_embeddings: (tmp_path,)}
+    for fn in calls:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn, args in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(*args)
+    assert not list(tmp_path.iterdir())
+
+
+def test_port_modules_of_the_trainer_slice_are_guarded():
+    """The modules this guard file's import test walks include every module
+    of the Tacotron trainer and of WaveRNN's MOL mode."""
+    names = set(_modules())
+    for name in ("models.tacotron.train", "models.tacotron.dataset",
+                 "models.tacotron.preprocess", "models.vocoder.distribution",
+                 "train.checkpoint", "train.logging", "weights"):
+        assert f"mockingbird_tpu_torch.{name}" in names, name
