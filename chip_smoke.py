@@ -67,7 +67,32 @@ Phases, each printing its elapsed seconds:
      the generator on the card against the CPU with handed-in draws in f32,
      then ``load`` of a second export into a RAW vocoder: K1's output
      after the swap equals a fresh vocoder's. No kernel on the MOL path;
-  10. each kernel held against its plain PyTorch version on the card, with
+  10. GAN vocoder training at the width of ``vocoder_hifigan.json`` (rates
+     8/8/4, 512 initial channels, hop 256, segment 8192, batch 16), seeded
+     weights, bf16: ``gan_train.train(arch="hifigan")`` for ``GAN_STEPS``
+     steps on a synthetic dataset of 40 utterances of 1-3 s (validation and
+     a checkpoint at step 3; the checkpoint loads back), the trainer's step
+     timed warm by part through hooks (generator forward; the
+     discriminators' forward, backward and AdamW; the generator's mel loss,
+     the discriminators' forward, backward and AdamW) with the peak memory
+     and the convolutions' FLOPs (counted by hooks on the meta device)
+     against the bf16 peak, one f32 step at batch 2 (learning rate 0, TF32
+     off) on the card against the CPU (losses, gradients, spectral-norm
+     ``u``/``sigma``), then ``train(arch="fregan")`` for ``FREGAN_STEPS``
+     steps at ``fregan_config()``. No kernel on this path;
+  11. WaveRNN training at the width of ``vocoder_wavernn.json`` (RAW 9-bit,
+     rnn/fc 512, batch 100, ``seq_len`` 1280), seeded weights, bf16:
+     ``wavernn_train.train`` for ``WAVERNN_STEPS`` steps on 100 synthetic
+     utterances with GTA-style mels at hop 256, a checkpoint every 2 steps,
+     each followed by ``gen_testset`` of 2 samples through K1 (its launches
+     counted: at least one per sample); the last checkpoint's sampler
+     weights are the trained model's, not the first's; K1 held against its
+     plain version on the last sampler call of this path (its own folds,
+     greedy and sampled, f32 and bf16 weights, bounds as in 12) and timed;
+     one MOL step; the
+     ``remat`` step against the plain one in f32 (TF32 off); the RAW step
+     timed warm with its peak memory;
+  12. each kernel held against its plain PyTorch version on the card, with
      the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
      (its fold-major layout) on the TTS path's own inputs, then timed at
      one utterance's folds and at 4 folds per SM, with the launch plan, the
@@ -75,7 +100,7 @@ Phases, each printing its elapsed seconds:
      (alignment search, exactly equal) on the training step's own inputs
      and on ragged, tied and band-less cases, timed per call with CUDA
      events, the kernel's own device time from a profiler trace beside it;
-  11. one ``kernels`` JSON line, then the contract line
+  13. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
 Every path is timed under PyTorch's defaults, which is what a caller of the
@@ -91,6 +116,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import random
 import subprocess
 import sys
 import tempfile
@@ -118,8 +144,20 @@ from mockingbird_tpu_torch.models.vits.train import (BUCKET_BOUNDARIES, BucketBa
                                                      to_device)
 from mockingbird_tpu_torch.dsp import decode_mulaw8_to_int16, load_wav, save_wav
 from mockingbird_tpu_torch.models.ppg import MelDecoderMOLv2, PPGExtractor
-from mockingbird_tpu_torch.models.vocoder import GanVocoder, WaveRnnVocoder
+from mockingbird_tpu_torch.models.layers import Conv1d, Conv2d, ConvTranspose1d
+from mockingbird_tpu_torch.models.vocoder import (FreGanDiscriminators, GanVocoder, Generator,
+                                                  HifiganDiscriminators, WaveRNN, WaveRnnVocoder,
+                                                  fregan_config, hifigan_config, init_generator,
+                                                  wavernn_config)
 from mockingbird_tpu_torch.models.vocoder import wavernn as wavernn_module
+from mockingbird_tpu_torch.models.vocoder.dataset import (MelDataset, collate_gan,
+                                                          get_dataset_filelist)
+from mockingbird_tpu_torch.models.vocoder.gan_train import make_gan_step
+from mockingbird_tpu_torch.models.vocoder.gan_train import make_optimizer as gan_optimizer
+from mockingbird_tpu_torch.models.vocoder.gan_train import train as gan_train
+from mockingbird_tpu_torch.models.vocoder.wavernn_train import (WaveRnnDataset, collate_wavernn,
+                                                                gen_testset, make_wavernn_step)
+from mockingbird_tpu_torch.models.vocoder.wavernn_train import train as wavernn_train
 from mockingbird_tpu_torch.ops import build
 from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
                                                        maximum_path_plain)
@@ -132,6 +170,7 @@ from mockingbird_tpu_torch.train.precision import Policy
 from mockingbird_tpu_torch.weights import save_npz, to_flax
 
 taco_train_module = importlib.import_module("mockingbird_tpu_torch.models.tacotron.train")
+wavernn_train_module = importlib.import_module("mockingbird_tpu_torch.models.vocoder.wavernn_train")
 
 ROOT = Path(__file__).resolve().parent
 REF_WAV = ROOT / "saved_models/gan_run/eval/ground_truth.wav"
@@ -175,6 +214,20 @@ GAN_CFG: dict = {}           # overrides of the committed sidecar (none on the c
 VC_BATCH = 8
 VC_REPS = 3
 VC_B_SECONDS = tuple(4.0 + 0.5 * i for i in range(8))
+# GAN vocoder training: 40 utterances of 1-3 s (a 95/5 split leaves 2 for
+# validation), 4 steps with validation and a checkpoint at step 3; Fre-GAN
+# 2 steps at its stock config
+GAN_UTTS = 40
+GAN_STEPS = 4
+FREGAN_STEPS = 2
+# WaveRNN training: 100 utterances of 1-2 s with GTA-style mels at hop 256,
+# 4 steps, a checkpoint every 2 with gen_testset of 2 samples
+WAVERNN_UTTS = 100
+WAVERNN_SECONDS = (1.0, 2.0)
+WAVERNN_STEPS = 4
+WAVERNN_SAVE_EVERY = 2
+WAVERNN_SAMPLES = 2
+WAVERNN_TRAIN_CFG: dict = {}  # overrides of the committed config (none on the card)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -405,27 +458,27 @@ def phase_tts(dev):
 # the flagship path: Tacotron → HiFi-GAN through tts_batch's fused branch
 # ---------------------------------------------------------------------------
 
-def generator_flops(cfg, frames: int) -> float:
-    """FLOPs of one HiFi-GAN ``Generator`` pass over ``frames`` mel frames
-    (2 per multiply-add). With C0 the initial channels, C_i = C0/2^(i+1),
-    u_i and k_i stage i's rate and kernel and r_i = u_0···u_i its samples
-    per frame (r_-1 = 1): conv_pre 2·M·C0·7; each transposed conv
-    2·C_(i-1)·C_i·k_i·r_(i-1) (every input step meets every tap); each
-    ResBlock1 of kernel k and n dilations 2n convs of 2·C_i²·k·r_i
-    (ResBlock2: n convs); conv_post 2·C_last·7·r_last. Per frame, times
-    ``frames``."""
-    c0, m = cfg.upsample_initial_channel, cfg.num_mels
-    per_conv = 2 if cfg.resblock == "1" else 1
-    total, r, ch_in = 2.0 * m * c0 * 7, 1, c0
-    for u, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
-        ch = ch_in // 2
-        total += 2.0 * ch_in * ch * k * r
-        r *= u
-        for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
-            total += per_conv * len(rd) * 2.0 * ch * ch * rk * r
-        ch_in = ch
-    total += 2.0 * ch_in * 7 * r
-    return total * frames
+def conv_flops(module, *inputs) -> float:
+    """FLOPs of the convolutions of one ``module(*inputs)`` call (2 per
+    multiply-add), counted by hooks from each conv's shapes: a conv's output
+    elements times its kernel's (in/groups)·taps, a transposed conv's input
+    elements times its out·taps. Run on the meta device it costs nothing."""
+    total = [0.0]
+
+    def hook(m, args, out):
+        w = m.weight
+        if isinstance(m, ConvTranspose1d):
+            total[0] += 2.0 * args[0].numel() * w.shape[1] * w.shape[2]
+        else:
+            total[0] += 2.0 * out.numel() * float(np.prod(w.shape[1:]))
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (Conv1d, Conv2d, ConvTranspose1d))]
+    with torch.no_grad():
+        module(*inputs)
+    for h in handles:
+        h.remove()
+    return total[0]
 
 
 def mulaw_labels(pcm16: np.ndarray) -> np.ndarray:
@@ -563,7 +616,9 @@ def phase_hifigan_tts(dev):
             print(f"  {fmt}: {show(times[fmt], audio_s)}")
         peak = torch.cuda.max_memory_allocated(dev)
         frames = BENCH_BATCH * BENCH_STEPS
-        flops = generator_flops(voc.cfg, frames)
+        with torch.device("meta"):
+            flops = conv_flops(Generator(voc.cfg), torch.empty(BENCH_BATCH, BENCH_STEPS,
+                                                               voc.cfg.num_mels))
         vocode = min(st["vocode"] for st in times.values())
         print(f"  {audio_s:.1f} s of audio; decode "
               f"{times['int16']['ar_decode'] / (BENCH_STEPS // 2) * 1e3:.2f} ms per step "
@@ -1264,6 +1319,361 @@ def phase_wavernn_mol(dev, tmp: Path):
 
 
 # ---------------------------------------------------------------------------
+# the vocoder trainers: HiFi-GAN/Fre-GAN GAN training, WaveRNN training
+# ---------------------------------------------------------------------------
+
+def _write_wav_dataset(root: Path, n: int, sr: int, seconds, seed: int = 0,
+                       hop: int = 0) -> list:
+    """``train.txt`` and ``audio/*.npy``: ``n`` harmonic tones with vibrato
+    and noise of ``seconds`` (lo, hi), made from ``seed``; with ``hop``
+    also ``mels_gta/`` (80, frames) smooth seeded noise in ±4, frames =
+    samples // hop, as GTA mels of the synthesizer's hop. Returns the
+    samples per utterance."""
+    rng = np.random.RandomState(seed)
+    (root / "audio").mkdir(parents=True)
+    if hop:
+        (root / "mels_gta").mkdir()
+    kernel = np.hanning(9) / np.hanning(9).sum()
+    rows, lens = [], []
+    for i, sec in enumerate(np.linspace(seconds[0], seconds[1], n)):
+        samples = int(sec * sr) // max(hop, 1) * max(hop, 1)
+        tt = np.arange(samples) / sr
+        f0 = rng.uniform(90, 250) * (1 + 0.05 * np.sin(2 * np.pi * rng.uniform(3, 6) * tt))
+        wav = sum(0.3 / k * np.sin(k * 2 * np.pi * np.cumsum(f0) / sr) for k in range(1, 6))
+        wav = (wav + 0.01 * rng.randn(samples)).astype(np.float32)
+        np.save(root / "audio" / f"audio-{i:04d}.npy", wav)
+        frames = samples // hop if hop else samples // 256
+        if hop:
+            noise = rng.randn(80, frames + 8) * 2.5 - 1.0
+            mel = np.stack([np.convolve(row, kernel, "valid") for row in noise])
+            np.save(root / "mels_gta" / f"mel-{i:04d}.npy", np.clip(mel, -4, 4).astype(np.float32))
+        rows.append(f"audio-{i:04d}.npy|mel-{i:04d}.npy|embed-{i:04d}.npy|{samples}|{frames}|text")
+        lens.append(samples)
+    (root / "train.txt").write_text("\n".join(rows) + "\n")
+    return lens
+
+
+def _rel_l2(got: list, want: list) -> float:
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want))
+    return (num / sum(float((b ** 2).sum()) for b in want)) ** 0.5
+
+
+def phase_gan_train(dev, tmp: Path):
+    cfg = Config(hifigan_config()).merge(Config.from_json(GAN_JSON)).merge(GAN_CFG)
+    data, models = tmp / "gan_data", tmp / "gan_models"
+    lens = _write_wav_dataset(data, GAN_UTTS, cfg.sample_rate, (1.0, 3.0))
+    seg_frames = cfg.segment_size // cfg.hop_size
+    with torch.device("meta"):
+        g_flops = conv_flops(Generator(cfg), torch.empty(cfg.batch_size, seg_frames,
+                                                          cfg.num_mels))
+        y_meta = torch.empty(cfg.batch_size, cfg.segment_size)
+        d_flops = conv_flops(HifiganDiscriminators(), y_meta, y_meta, True)
+    # a step: G forward + backward (3x), D forward + backward on (y, y_hat)
+    # (3x), then D forward again + backward to the generator's output (2x)
+    step_flops = 3 * g_flops + 5 * d_flops
+    with Phase(f"GAN vocoder training: train(arch='hifigan'), {GAN_STEPS} steps of batch "
+               f"{cfg.batch_size}, segment {cfg.segment_size}, bf16"):
+        check_config("HiFi-GAN", cfg, GAN_JSON)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen, disc = gan_train("smoke", data, models, arch="hifigan", total_steps=GAN_STEPS,
+                              val_every=GAN_STEPS - 1, save_every=GAN_STEPS - 1, log_every=1,
+                              cfg=cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"  launches on the GAN training path: {launches} (no kernel on this path)")
+        check(not any(launches.values()), "a kernel launched on the GAN training path")
+        logs = [json.loads(line) for line in
+                (models / "smoke/logs_hifigan/scalars.jsonl").read_text().splitlines()]
+        for rec in logs:
+            print("  " + ", ".join(f"{k} {v:.4g}" for k, v in rec.items()))
+            check(all(np.isfinite(v) for v in rec.values()), f"a loss is not finite: {rec}")
+        check([r["step"] for r in logs if "train/gen" in r] == list(range(1, GAN_STEPS + 1))
+              and [r["step"] for r in logs if "val/mel_err" in r] == [GAN_STEPS - 1],
+              "logged steps and validation")
+        ckpt = CheckpointManager(models / "smoke/ckpt_hifigan")
+        check(ckpt.steps() == [GAN_STEPS - 1, GAN_STEPS + 1], f"checkpoints {ckpt.steps()}")
+        step, state = ckpt.restore_latest(map_location=dev)
+        for key, module in (("g", gen), ("d", disc)):
+            for name, t in module.state_dict().items():
+                check(torch.equal(state[key][name], t), f"restored {key} {name} differs")
+        n_g = sum(p.numel() for p in gen.parameters())
+        n_d = sum(p.numel() for p in disc.parameters())
+        print(f"  {len(lens)} utterances of {min(lens) / cfg.sample_rate:.2f}-"
+              f"{max(lens) / cfg.sample_rate:.2f} s; generator {n_g} and discriminators {n_d} "
+              f"parameters; {wall:.2f} s wall; checkpoints {ckpt.steps()}, step {step} restored "
+              f"with {len(state['g'])} + {len(state['d'])} tensors equal")
+
+    with Phase("GAN vocoder training: the trainer's step, by part (synchronised at each hook)"):
+        ds = MelDataset(get_dataset_filelist(data)[0], cfg, syn_dir=data, seed=0)
+        batch = taco_to_device(collate_gan([ds[i] for i in range(cfg.batch_size)]), dev)
+        opt_g = gan_optimizer(gen.parameters(), cfg)
+        opt_d = gan_optimizer(disc.parameters(), cfg)
+        step_fn = make_gan_step(gen, disc, opt_g, opt_d, cfg, "bf16")
+        step_fn(batch)                                                   # warm
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        marks = []
+
+        def mark(event):
+            def hook(*_, **__):
+                torch.cuda.synchronize()
+                marks.append((event, time.perf_counter()))
+            return hook
+
+        handles = [gen.register_forward_hook(mark("generator forward ends")),
+                   opt_d.register_step_post_hook(mark("discriminators' AdamW ends")),
+                   opt_g.register_step_post_hook(mark("generator's AdamW ends"))]
+        torch.cuda.reset_peak_memory_stats()
+        mark("step begins")()
+        step_fn(batch)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for h in handles:
+            h.remove()
+        names = ("generator forward", "D forward + backward + AdamW",
+                 "G's mel loss, D forward, backward + AdamW")
+        for label, (_, t_a), (_, t_b) in zip(names, marks, marks[1:]):
+            print(f"  {label}: {(t_b - t_a) * 1e3:.1f} ms")
+        best = min(walls)
+        print(f"  step without marks: {[round(w * 1e3, 1) for w in walls]} ms ({tf32_state()}); "
+              f"peak memory {peak:.2f} GiB; conv FLOPs per step {step_flops:.4g} (generator "
+              f"{g_flops:.4g} and discriminators {d_flops:.4g} per forward): "
+              f"{step_flops / best / 1e12:.1f} TFLOP/s, "
+              f"{100 * step_flops / best / PEAK_BF16_FLOPS:.1f}% of the bf16 peak")
+        print("  one step: " + device_split(lambda: step_fn(batch)))
+
+    with Phase("GAN vocoder training: one f32 step on the card against the CPU"):
+        # learning rate 0: the discriminators' update moves nothing, so the
+        # generator's gradients on both sides are taken through the same
+        # discriminators; the spectral-norm statistics still move
+        cfg0 = Config(cfg).merge(dict(learning_rate=0.0))
+        host = collate_gan([ds[i] for i in range(2)])
+        results = {}
+        for name, d in (("cpu", "cpu"), ("card", dev)):
+            g_m = init_generator(0, cfg).to(d)
+            d_m = HifiganDiscriminators().to(d)
+            g_m.load_state_dict(gen.state_dict())
+            d_m.load_state_dict(disc.state_dict())
+            step1 = make_gan_step(g_m, d_m, gan_optimizer(g_m.parameters(), cfg0),
+                                  gan_optimizer(d_m.parameters(), cfg0), cfg0, "fp32")
+            with full_f32() if d != "cpu" else nullcontext():
+                losses = [float(v) for v in step1(taco_to_device(host, d))]
+            results[name] = (losses, [p.grad.detach().cpu().double() for p in g_m.parameters()],
+                             [p.grad.detach().cpu().double() for p in d_m.parameters()],
+                             [b.detach().cpu().double() for n, b in d_m.named_buffers()
+                              if n.endswith((".u", ".sigma"))])
+        (l_cpu, g_cpu, d_cpu, s_cpu), (l_card, g_card, d_card, s_card) = (results["cpu"],
+                                                                          results["card"])
+        loss_err = max(abs(a / b - 1) for a, b in zip(l_card, l_cpu))
+        g_err, d_err = _rel_l2(g_card, g_cpu), _rel_l2(d_card, d_cpu)
+        s_err = max(float((a - b).abs().max()) for a, b in zip(s_card, s_cpu))
+        print(f"  batch 2, TF32 off: losses {l_card} vs {l_cpu}, relative error {loss_err:.3g} "
+              f"(bound 1e-4); gradients relative L2: generator {g_err:.3g}, discriminators "
+              f"{d_err:.3g} (bound 1e-3); spectral-norm u/sigma max |card - cpu| {s_err:.3g} "
+              f"(bound 1e-4)")
+        check(loss_err <= 1e-4, f"the f32 losses on the card differ from the CPU by {loss_err}")
+        check(max(g_err, d_err) <= 1e-3, f"the f32 gradients differ by {g_err}, {d_err}")
+        check(s_err <= 1e-4, f"the spectral-norm statistics differ by {s_err}")
+
+    with Phase(f"GAN vocoder training: train(arch='fregan'), {FREGAN_STEPS} steps at "
+               f"fregan_config()"):
+        fcfg = fregan_config()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fgen, fdisc = gan_train("smoke", data, models, arch="fregan", total_steps=FREGAN_STEPS,
+                                val_every=0, save_every=0, log_every=1, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(read_counts().values()), "a kernel launched on the Fre-GAN path")
+        logs = [json.loads(line) for line in
+                (models / "smoke/logs_fregan/scalars.jsonl").read_text().splitlines()]
+        check(len(logs) == FREGAN_STEPS and all(np.isfinite(v) for r in logs for v in r.values()),
+              f"Fre-GAN logs {logs}")
+        with torch.device("meta"):
+            y_meta = torch.empty(fcfg.batch_size, fcfg.segment_size)
+            f_flops = conv_flops(FreGanDiscriminators(), y_meta, y_meta, True)
+        print(f"  rates {fcfg.upsample_rates}, segment {fcfg.segment_size}, batch "
+              f"{fcfg.batch_size}: {sum(p.numel() for p in fgen.parameters())} + "
+              f"{sum(p.numel() for p in fdisc.parameters())} parameters; "
+              f"{[round(r['train/ms_per_step'], 1) for r in logs]} ms per step in train's log; "
+              f"discriminators {f_flops:.4g} FLOPs per forward; {wall:.2f} s wall")
+
+
+def phase_wavernn_train(dev, tmp: Path):
+    cfg = Config(wavernn_config()).merge(Config.from_json(WAVERNN_JSON)).merge(WAVERNN_TRAIN_CFG)
+    data, models = tmp / "wavernn_data", tmp / "wavernn_models"
+    lens = _write_wav_dataset(data, WAVERNN_UTTS, cfg.sample_rate, WAVERNN_SECONDS, seed=1,
+                              hop=cfg.hop_size)
+    vocoders, sampled = [], []
+
+    def recording(*args, **kw):
+        voc = gen_testset(*args, **kw)
+        vocoders.append((voc, {k: v.clone() for k, v in voc.packed.items()}))
+        return voc
+
+    # the sampler's inputs on this path, for the hold below; the count stays
+    # the wrapper's
+    def sampling(weights, mels, aux, seed, n_classes=512, greedy=False):
+        sampled.append((weights, mels, aux, seed, n_classes, greedy))
+        return wavernn_sample(weights, mels, aux, seed, n_classes, greedy)
+
+    n_ckpt = WAVERNN_STEPS // WAVERNN_SAVE_EVERY
+    with Phase(f"WaveRNN training: train, {WAVERNN_STEPS} steps of batch {cfg.batch_size}, "
+               f"seq_len {cfg.seq_len}, bf16, gen_testset of {WAVERNN_SAMPLES} at each of "
+               f"{n_ckpt} checkpoints"):
+        check_config("WaveRNN", cfg, WAVERNN_JSON)
+        wavernn_train_module.gen_testset = recording
+        wavernn_module.wavernn_sample = sampling
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = wavernn_train("smoke", data, models, total_steps=WAVERNN_STEPS,
+                              save_every=WAVERNN_SAVE_EVERY, log_every=1, cfg=cfg,
+                              gen_samples=WAVERNN_SAMPLES, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        wavernn_train_module.gen_testset = gen_testset
+        wavernn_module.wavernn_sample = wavernn_sample
+        samples = n_ckpt * WAVERNN_SAMPLES
+        print(f"  launches on the WaveRNN training path: {launches} ({samples} generated "
+              f"samples)")
+        check(launches["wavernn_sample"] >= samples,
+              f"K1 launched {launches['wavernn_sample']} times for {samples} samples")
+        check(launches["maximum_path"] == 0 and launches["wavernn_sample(time_major=False)"] == 0,
+              "another kernel launched on the WaveRNN training path")
+        logs = [json.loads(line) for line in
+                (models / "smoke/logs_wavernn/scalars.jsonl").read_text().splitlines()]
+        for rec in logs:
+            print("  " + ", ".join(f"{k} {v:.4g}" for k, v in rec.items()))
+            check(np.isfinite(rec["train/loss"]), f"a loss is not finite: {rec}")
+        ckpt = CheckpointManager(models / "smoke/ckpt_wavernn")
+        want_steps = [WAVERNN_SAVE_EVERY * (i + 1) for i in range(n_ckpt)] + [WAVERNN_STEPS + 1]
+        check(ckpt.steps() == want_steps, f"checkpoints {ckpt.steps()}")
+        _, state = ckpt.restore_latest(map_location=dev)
+        for name, t in model.state_dict().items():
+            check(torch.equal(state["model"][name], t), f"restored {name} differs")
+        wavs = {}
+        for path in sorted((models / "smoke/samples_wavernn").iterdir()):
+            wav, sr = load_wav(path)
+            check(len(wav) > 0 and bool(np.isfinite(wav).all()), f"sample {path.name}")
+            wavs[path.name] = wav
+        check(len(wavs) == 2 * samples, f"{len(wavs)} sample wavs")
+        print(f"  {len(lens)} utterances of {min(lens) / cfg.sample_rate:.2f}-"
+              f"{max(lens) / cfg.sample_rate:.2f} s; {sum(p.numel() for p in model.parameters())} "
+              f"parameters; {wall:.2f} s wall; checkpoints {ckpt.steps()}; {len(wavs)} wavs")
+
+    with Phase("WaveRNN training: each checkpoint's samples from its own weights"):
+        (voc, first), (voc2, second) = vocoders[0], vocoders[-1]
+        fresh = pack_wavernn_weights(model)
+        check(voc is voc2 and all(torch.equal(second[k], v) for k, v in fresh.items()),
+              "the last checkpoint's sampler weights are not the trained model's")
+        check(not all(torch.equal(first[k], v) for k, v in second.items()),
+              "the sampler weights did not change between checkpoints")
+        gen_name = f"gen_batched_target{cfg.gen_target}_overlap{cfg.gen_overlap}"
+        a = wavs[f"{WAVERNN_SAVE_EVERY}_steps_0_{gen_name}.wav"]
+        b = wavs[f"{WAVERNN_STEPS}_steps_0_{gen_name}.wav"]
+        check(not np.array_equal(a, b), "the two checkpoints generated the same sample")
+        print(f"  one vocoder across {len(vocoders)} checkpoints; its packed weights after the "
+              f"last equal the trained model's and differ from the first's; sample 0 differs "
+              f"between steps {WAVERNN_SAVE_EVERY} and {WAVERNN_STEPS} "
+              f"(max |diff| {float(np.abs(a - b).max()):.3g})")
+
+    with Phase("WaveRNN training: K1 on this path's inputs against its plain version"):
+        # the last checkpoint's last call: the trained model's weights, packed
+        # in bf16 as the path packs them, and in f32 from the same model
+        check(len(sampled) == launches["wavernn_sample"],
+              f"{len(sampled)} sampler calls for {launches['wavernn_sample']} launches")
+        w_bf16, mels, aux, seed, n_classes, greedy_path = sampled[-1]
+        check(w_bf16 is vocoders[-1][0].packed and not greedy_path,
+              "the last sampler call did not take the last checkpoint's packed weights")
+        w_f32 = pack_wavernn_weights(model, torch.float32)
+        f, t, _ = mels.shape
+        print(f"  {len(sampled)} calls, shapes {[tuple(c[1].shape[:2]) for c in sampled]} "
+              f"(folds x steps); held: F={f} x T={t}, mels {tuple(mels.shape)}, aux "
+              f"{tuple(aux.shape)}")
+        rnn, fc = w_bf16["I_w"].shape[1], w_bf16["fc1_w"].shape[1]
+        for dtype in (torch.bfloat16, torch.float32):
+            pl = plan(rnn, fc, n_classes, aux.shape[2] // 4, mels.shape[2], f, dtype,
+                      resident_blocks(dev, dtype))
+            print(f"  plan ({dtype}, F={f}): grid {pl.grid} blocks of {pl.nu} units, "
+                  f"{pl.fchunk} folds per stage, {pl.staged_bytes} B staged per step")
+        k1_err = 0.0
+        with full_f32():
+            for label, w, greedy, bound in (("greedy f32", w_f32, True, GAP_F32),
+                                            ("greedy bf16", w_bf16, True, GAP_BF16),
+                                            ("sampled f32", w_f32, False, GAP_F32),
+                                            ("sampled bf16", w_bf16, False, GAP_BF16)):
+                p, gaps = wavernn_sample_plain(w, mels, aux, seed, n_classes, greedy=greedy,
+                                               return_gaps=True)
+                k = wavernn_sample(w, mels, aux, seed, n_classes, greedy=greedy)
+                compared, full, worst, e = hold_labels(k, p, gaps, bound, n_classes)
+                k1_err = max(k1_err, e)
+                print(f"  K1 {label}: {compared}/{f * t} steps equal before the first "
+                      f"difference, {full}/{f} folds equal throughout, largest gap at a first "
+                      f"difference {worst:.3g} (bound {bound})")
+        print(f"  max |x_kernel - x_plain| before each fold's first near-tie: {k1_err}")
+        check(k1_err == 0.0, "labels differ before a fold's first near-tie")
+        k1_ms = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes), reps=3)
+        k1_plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))
+        print(f"  K1 at this path's call (bf16, sampled): {k1_ms:.3f} ms ({k1_ms / t * 1e3:.2f} "
+              f"us per step), plain {k1_plain_ms:.3f} ms; {launches['wavernn_sample']} launches "
+              f"on the path ({tf32_state()})")
+
+    with Phase("WaveRNN training: one MOL step, remat against plain in f32, the step timed"):
+        ds = WaveRnnDataset(data / "train.txt", data / "mels_gta", data / "audio", cfg)
+        rng = random.Random(0)
+        batch = taco_to_device(collate_wavernn([ds[i] for i in range(cfg.batch_size)], cfg, rng),
+                               dev)
+        mol_cfg = Config(cfg).merge(dict(mode="MOL"))
+        mol_ds = WaveRnnDataset(data / "train.txt", data / "mels_gta", data / "audio", mol_cfg)
+        mol_batch = taco_to_device(collate_wavernn(
+            [mol_ds[i] for i in range(cfg.batch_size)], mol_cfg, random.Random(0)), dev)
+        mol = WaveRNN(mol_cfg).to(dev).train()
+        mol_step = make_wavernn_step(mol, torch.optim.Adam(mol.parameters(), lr=1e-4), "MOL",
+                                     "bf16")
+        mol_loss = float(mol_step(mol_batch))
+        check(np.isfinite(mol_loss), f"MOL loss {mol_loss}")
+        losses = {}
+        with full_f32():
+            for remat in (False, True):
+                m = WaveRNN(Config(cfg).merge(dict(remat=remat))).to(dev).train()
+                m.load_state_dict(model.state_dict())
+                step1 = make_wavernn_step(m, torch.optim.Adam(m.parameters(), lr=1e-4), "RAW",
+                                          "fp32", remat=remat)
+                losses[remat] = float(step1(batch))
+        remat_err = abs(losses[True] / losses[False] - 1)
+        print(f"  MOL step loss {mol_loss:.4f} (bf16); f32 with TF32 off: plain {losses[False]:.6f}, "
+              f"remat {losses[True]:.6f}, relative difference {remat_err:.3g} (bound 1e-5)")
+        check(remat_err <= 1e-5, f"the remat loss differs from the plain one by {remat_err}")
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+        step = make_wavernn_step(model, opt, "RAW", "bf16")
+        step(batch)                                                      # warm
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  RAW bf16 step, batch {cfg.batch_size} x {cfg.seq_len}: "
+              f"{[round(w * 1e3, 1) for w in walls]} ms ({tf32_state()}); peak memory "
+              f"{peak:.2f} GiB")
+        print("  one step: " + device_split(lambda: step(batch)))
+    return k1_err
+
+
+# ---------------------------------------------------------------------------
 # the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1355,7 +1765,9 @@ def phase_k2(dev, train_inputs, launches):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
 
 
-def phase_k1(dev, pipe, captured, launches):
+def phase_k1(dev, pipe, captured, launches, train_err):
+    """K1's hold at the TTS path's call; ``train_err`` is its error at the
+    WaveRNN trainer's call, held there, which its ``max_abs_err`` takes in."""
     with Phase("K1 wavernn_sample and K1b (fold-major): kernel against its plain version"):
         check(len(captured) == 1, f"expected one sampler call, got {len(captured)}")
         mels, aux, seed, n_classes, _ = captured[0]
@@ -1456,7 +1868,8 @@ def phase_k1(dev, pipe, captured, launches):
     common = {"route": "cuda", "source": "mockingbird_tpu_torch/ops/csrc/wavernn_sample.cu",
               "plain_ms": plain_ms, "library_ms": library_ms}
     return [dict(common, name="wavernn_sample", replaces="mockingbird_tpu/ops/wavernn_sample.py:138",
-                 launches=launches["wavernn_sample"], max_abs_err=err[True], ms=ms,
+                 launches=launches["wavernn_sample"], max_abs_err=max(err[True], train_err),
+                 ms=ms,
                  bound_ms=bounds["K1"][0], bound_by=bounds["K1"][1]),
             # no path takes the fold-major layout (in the JAX package neither):
             # its count from the TTS run is expected to be 0
@@ -1504,7 +1917,11 @@ def main() -> int:
         phase_tacotron_train(dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         phase_wavernn_mol(dev, Path(tmp))
-    kernels = phase_k1(dev, pipe, captured, tts_launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_gan_train(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_train_err = phase_wavernn_train(dev, Path(tmp))
+    kernels = phase_k1(dev, pipe, captured, tts_launches, k1_train_err)
     kernels.append(phase_k2(dev, train_inputs, train_launches))
     print(f"== total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": kernels}))

@@ -85,9 +85,14 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, win_length: Optional[int] = None
     """Real STFT via a DFT-basis matmul. Returns (real, imag), each (..., frames, bins)."""
     win_length = win_length or n_fft
     if center:
-        lead = x.shape[:-1]
-        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (n_fft // 2, n_fft // 2),
-                  mode=pad_mode).reshape(*lead, -1)
+        half, n = n_fft // 2, x.shape[-1]
+        if pad_mode == "reflect" and half >= n > 1:
+            # numpy's reflection, repeated where the pad outgrows the signal
+            idx = np.abs(np.arange(-half, n + half)) % (2 * (n - 1))
+            x = x[..., torch.from_numpy(np.where(idx >= n, 2 * (n - 1) - idx, idx)).to(x.device)]
+        else:
+            lead = x.shape[:-1]
+            x = F.pad(x.reshape(-1, 1, n), (half, half), mode=pad_mode).reshape(*lead, -1)
     frames = frame(x, n_fft, hop)
     cos_b, nsin_b = _dft_basis(n_fft, win_length)
     return frames @ _const(cos_b, frames), frames @ _const(nsin_b, frames)

@@ -12,7 +12,12 @@ flax tree.
 Below them, the flax layers the VITS and HiFi-GAN modules are built from:
 ``Dense``, ``LayerNorm``, convolutions with flax's padding, and flax's
 ``WeightNorm`` kept as a parametrization (direction and gain), because
-training runs through it.
+training runs through it, and flax's ``SpectralNorm``.
+
+A convolution that flax names automatically (``Conv_3``, as Fre-GAN's
+discriminators leave theirs) carries that name as ``flax_name``; without
+one, a normed conv ``<n>`` keeps its kernel under ``<n>_conv``, as the
+JAX package names it.
 """
 from __future__ import annotations
 
@@ -21,13 +26,18 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 class FusedGRUCell(nn.Module):
     """One GRU step as two matmuls: ``wi`` = [ir|iz|in] (+ input biases),
     ``wh`` = [hr|hz|hn] (no bias), ``bn`` the ``hn`` bias. Port of
     ``models/tacotron/model.py:FusedGRUCell`` (also flax ``nn.GRUCell``);
-    computes in the promoted dtype of its inputs and parameters."""
+    computes in the promoted dtype of its inputs and parameters.
+    ``sequence`` runs the same parameters over a whole sequence, as flax's
+    ``nn.RNN`` of the cell does, through the fused GRU call; its hidden
+    r/z biases, which flax does not have, are the zero buffer
+    ``bias_hh_rz``."""
 
     def __init__(self, in_dims: int, features: int):
         super().__init__()
@@ -35,6 +45,7 @@ class FusedGRUCell(nn.Module):
         self.wi = Dense(in_dims, 3 * features)
         self.wh = Dense(features, 3 * features, bias=False)
         self.bn = nn.Parameter(torch.zeros(features))
+        self.register_buffer("bias_hh_rz", torch.zeros(2 * features), persistent=False)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         xr, xz, xn = self.wi(x).chunk(3, dim=-1)
@@ -43,6 +54,44 @@ class FusedGRUCell(nn.Module):
         z = torch.sigmoid(xz + hz)
         n = torch.tanh(xn + r * (hn + self.bn))
         return (1.0 - z) * n + z * h
+
+    def sequence(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """(B, T, D) from a zero state → (B, T, features), as ``GRULayer``.
+        ``remat``: the backward recomputes the recurrence instead of keeping
+        its activations (``torch.utils.checkpoint``; the weights are handed
+        in, so a recompute sees the ones the forward saw)."""
+        args = (x, self.wi.weight, self.wi.bias, self.wh.weight, self.bias_hh_rz, self.bn,
+                False, self.training)
+        if remat:
+            return checkpoint(gru_sequence, *args, use_reentrant=False)
+        return gru_sequence(*args)
+
+
+def gru_sequence(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
+                 b_hh_rz: torch.Tensor, b_hn: torch.Tensor, reverse: bool = False,
+                 training: bool = False) -> torch.Tensor:
+    """flax ``nn.RNN(nn.GRUCell)`` over (B, T, D) from a zero state through
+    ``torch.gru``; ``reverse=True`` runs right to left and keeps the output
+    order. The recurrence runs in float32 at least, whatever the input:
+    flax's carry is float32, which promotes every gate; a bf16 input's
+    input gates are bf16 products, as flax's Denses make them (float64
+    runs in float64)."""
+    cdt = torch.promote_types(torch.promote_types(x.dtype, w_ih.dtype), torch.float32)
+    w_ih_f, b_ih_f = w_ih.to(cdt), b_ih.to(cdt)
+    if torch.promote_types(x.dtype, w_ih.dtype).itemsize < 4:
+        # flax's input gates are Denses of the bf16 input: their output
+        # is rounded to bf16 before the float32 hidden gates are added
+        x = with_bias(F.linear, *promote(x, w_ih, b_ih), channel_dim=-1)
+        w_ih_f = torch.eye(x.shape[-1], device=x.device, dtype=cdt)
+        b_ih_f = torch.zeros_like(b_ih_f)
+    x = x.to(cdt)
+    if reverse:
+        x = x.flip(1)
+    b_hh = torch.cat([b_hh_rz.to(cdt), b_hn.to(cdt)])
+    h0 = x.new_zeros(1, x.shape[0], b_hn.shape[0])
+    weights = [w_ih_f, w_hh.to(cdt), b_ih_f, b_hh]
+    y = torch.gru(x, h0, weights, True, 1, 0.0, training, False, True)[0]
+    return y.flip(1) if reverse else y
 
 
 # The recurrent layers below hold flax's parameters and no more. PyTorch's
@@ -58,9 +107,7 @@ class GRULayer(nn.Module):
     ``reverse=True`` runs right to left and keeps the output order.
     Parameters: ``weight_ih_l0`` / ``bias_ih_l0`` (r, z, n input gates),
     ``weight_hh_l0`` (hidden gates), ``bias_hn``; the r/z hidden biases are
-    the zero buffer ``bias_hh_rz``. The recurrence runs in float32 whatever
-    the input: flax's carry is float32, which promotes every gate; a bf16
-    input's input gates are bf16 products, as flax's Denses make them."""
+    the zero buffer ``bias_hh_rz``. Runs ``gru_sequence``."""
 
     def __init__(self, in_dims: int, hidden: int, reverse: bool = False):
         super().__init__()
@@ -72,22 +119,8 @@ class GRULayer(nn.Module):
         self.register_buffer("bias_hh_rz", torch.zeros(2 * hidden), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w_ih, b_ih = self.weight_ih_l0.float(), self.bias_ih_l0.float()
-        if torch.promote_types(x.dtype, self.weight_ih_l0.dtype) != torch.float32:
-            # flax's input gates are Denses of the bf16 input: their output
-            # is rounded to bf16 before the float32 hidden gates are added
-            x = with_bias(F.linear, *promote(x, self.weight_ih_l0, self.bias_ih_l0),
-                          channel_dim=-1)
-            w_ih = torch.eye(x.shape[-1], device=x.device)
-            b_ih = torch.zeros_like(b_ih)
-        x = x.float()
-        if self.reverse:
-            x = x.flip(1)
-        b_hh = torch.cat([self.bias_hh_rz, self.bias_hn.float()])
-        h0 = x.new_zeros(1, x.shape[0], self.bias_hn.shape[0])
-        weights = [w_ih, self.weight_hh_l0.float(), b_ih, b_hh]
-        y = torch.gru(x, h0, weights, True, 1, 0.0, self.training, False, True)[0]
-        return y.flip(1) if self.reverse else y
+        return gru_sequence(x, self.weight_ih_l0, self.bias_ih_l0, self.weight_hh_l0,
+                            self.bias_hh_rz, self.bias_hn, self.reverse, self.training)
 
 
 class FusedLSTMLayer(nn.Module):
@@ -213,12 +246,13 @@ class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
 
     Eval mode normalises with the running statistics. Training mode
     normalises with the batch's mean and biased variance, both in float32
+    (float64 for float64 inputs)
     (flax's E[x²] − E[x]², clipped at 0), and sets each running statistic to
     0.9·running + 0.1·batch, with the *biased* variance (PyTorch's
     BatchNorm would take the unbiased one). The update reads the running
     statistics rounded to the parameters' dtype, as the JAX step under a
-    bf16 policy casts its ``batch_stats``, and writes the float32 result
-    back into the buffers. The output is in the promoted dtype of the input
+    bf16 policy casts its ``batch_stats``, multiplies them by 0.9 in that
+    dtype, and writes the float32 result back into the buffers. The output is in the promoted dtype of the input
     and the parameters."""
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
@@ -227,26 +261,31 @@ class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1, -1] + [1] * (x.ndim - 2)
         out_dt = promote(x, self.weight, self.bias)[0].dtype
-        xf = x.float()
+        cdt = torch.promote_types(out_dt, torch.float32)
+        xf = x.to(cdt)
         if self.training:
             dims = [0] + list(range(2, x.ndim))
             mean = xf.mean(dims)
             var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            # the momentum in the parameters' dtype (bf16: 0.8984375), as
+            # JAX casts the Python scalar that multiplies the rounded stats
+            momentum = torch.tensor(0.9, dtype=self.weight.dtype)
             with torch.no_grad():
                 for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
-                    buf.copy_((0.9 * buf.to(self.weight.dtype)).float() + (1 - 0.9) * stat)
+                    buf.copy_((momentum * buf.to(self.weight.dtype)).to(cdt) + (1 - 0.9) * stat)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(cdt)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.to(cdt).view(shape)
         return y.to(out_dt)
 
 
 def weight_norm(v: torch.Tensor, scale: torch.Tensor, out_dim: int) -> torch.Tensor:
     """flax ``nn.WeightNorm`` of a kernel: ``v · rsqrt(Σv² + 1e-12) · scale``
     in flax's order, the sum over every axis but the output-feature axis
-    ``out_dim``. Returned in f32, for the caller to cast to the dtype its
-    conv runs in. With bf16 parameters it rounds where jitted XLA does: the
+    ``out_dim``. Returned in f32 (f64 for f64 parameters), for the caller
+    to cast to the dtype its conv runs in. With bf16 parameters it rounds
+    where jitted XLA does: the
     sum (``jnp.sum`` accumulates in f32 and rounds its result), the rsqrt
     and the normalised direction, but not the product with ``scale``, which
     stays in the fusion that feeds the conv."""
@@ -254,13 +293,14 @@ def weight_norm(v: torch.Tensor, scale: torch.Tensor, out_dim: int) -> torch.Ten
     shape = [1] * v.ndim
     shape[out_dim] = -1
     wdt = v.dtype
+    cdt = torch.promote_types(wdt, torch.float32)
 
     def rnd(a):
-        return a.to(wdt).float()
+        return a.to(wdt).to(cdt)
 
-    v = v.float()
+    v = v.to(cdt)
     inv = rnd(torch.rsqrt(rnd((v * v).sum(dim=dims, keepdim=True)) + 1e-12))
-    return rnd(v * inv) * scale.float().reshape(shape)
+    return rnd(v * inv) * scale.to(cdt).reshape(shape)
 
 
 def same_padding(t: int, k: int, stride: int = 1, dilation: int = 1) -> Tuple[int, int]:
@@ -302,9 +342,11 @@ class Conv1d(nn.Module):
             return weight_norm(self.weight, self.scale, 0)
         return self.weight
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``kernel`` (``weight``'s layout) replaces the conv's own, as
+        ``SpectralNorm`` hands in its normalised one."""
         x, _, b = promote(x, self.weight, self.bias)
-        w = self.kernel().to(x.dtype)
+        w = (self.kernel() if kernel is None else kernel).to(x.dtype)
         if self.time_major:
             x = x.transpose(1, 2)
         if self.padding == "SAME":
@@ -337,6 +379,13 @@ class ConvTranspose1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, _, b = promote(x, self.weight, self.bias)
         w = self.kernel().to(x.dtype)
+        if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+            # oneDNN's bf16 strided conv, which computes this layer's input
+            # gradient, returns wrong sums at some shapes (16 → 32 channels,
+            # kernel 8, stride 4: relative error ~1.2 against float64);
+            # float32 rounded once is what the card's bf16 conv gives
+            y = F.conv_transpose1d(x.float(), w.float(), None, self.stride).to(x.dtype)
+            return y if b is None else y + b.reshape(1, -1, 1)
         return with_bias(F.conv_transpose1d, x, w, b, self.stride)
 
 
@@ -362,3 +411,62 @@ class Conv2d(nn.Module):
         x, _, b = promote(x, self.weight, self.bias)
         w = self.kernel().to(x.dtype)
         return with_bias(F.conv2d, F.pad(x, self.pad), w, b, self.stride)
+
+
+class SpectralNorm(nn.Module):
+    """flax ``nn.SpectralNorm`` (flax 0.12, ``n_steps`` 1, ``eps`` 1e-12)
+    around a ``Conv1d`` without weight norm: the conv runs with its kernel
+    divided by the kernel's largest singular value, estimated by one power
+    iteration from the stored ``u``.
+
+    flax's semantics, which ``torch.nn.utils.spectral_norm`` does not have:
+      * the kernel is the matrix (-1, out) of flax's (k, in/g, out) layout,
+        ``u`` is (1, out) (the iteration does not depend on the order of
+        the rows, so torch's (out, in/g, k) is read as it lies);
+      * the iteration runs on every call, eval included, from the stored
+        ``u``; ``update_stats`` decides only whether the new ``u`` and
+        ``sigma`` are stored, so a second call after an update starts from
+        the first call's ``u``. The stored ``sigma`` is never divided by;
+      * ``u`` and ``v`` carry no gradient; ``sigma = v·W·uᵀ`` does, through
+        the kernel;
+      * below float32 the iteration runs in the kernel's dtype, ``u`` read
+        rounded to it (the JAX step casts its ``batch_stats``), each
+        product, sum and root rounded where jitted XLA rounds them, and the
+        stored results are those rounded values in float32 (float64 runs
+        in float64 throughout).
+
+    ``u`` is drawn N(0, 1) at construction (flax's initialiser, from the
+    torch generator instead of a JAX key); ``sigma`` starts at 1."""
+
+    def __init__(self, layer: nn.Module):
+        super().__init__()
+        self.layer = layer
+        out = layer.weight.shape[0]
+        self.register_buffer("u", torch.randn(1, out))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def normalized_kernel(self, update_stats: bool = False) -> torch.Tensor:
+        w = self.layer.weight
+        wdt = w.dtype
+        cdt = torch.promote_types(wdt, torch.float32)
+
+        def rnd(a):
+            return a.to(wdt).to(cdt)
+
+        def l2_normalize(a):
+            return rnd(a * rnd(torch.rsqrt(rnd(rnd(a * a).sum()) + 1e-12)))
+
+        mat = w.to(cdt).reshape(w.shape[0], -1)              # (out, rows)
+        with torch.no_grad():
+            u = rnd(self.u.to(cdt))
+            v = l2_normalize(rnd(u @ mat))                   # (1, rows)
+            u = l2_normalize(rnd(v @ mat.T))                 # (1, out)
+        sigma = rnd(rnd(v @ mat.T) @ u.T)[0, 0]
+        if update_stats:
+            with torch.no_grad():
+                self.u.copy_(u)
+                self.sigma.copy_(sigma)
+        return rnd(w.to(cdt) / torch.where(sigma != 0, sigma, torch.ones_like(sigma)))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        return self.layer(x, kernel=self.normalized_kernel(update_stats))

@@ -31,7 +31,7 @@ from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.precision import Policy
 from ..vocoder.gan_losses import discriminator_loss, feature_loss, generator_loss, kl_loss
-from ..vocoder.hifigan import DiscriminatorP, DiscriminatorS
+from ..vocoder.hifigan import DiscriminatorP, DiscriminatorS, collect, real_and_generated
 from .model import init_vits, vits_config
 from .modules import slice_segments
 
@@ -54,16 +54,8 @@ class VitsDiscriminator(nn.Module):
             self.add_module(f"disc_p{p}", DiscriminatorP(p))
 
     def forward(self, y, y_hat):
-        b = y.shape[0]
-        both = torch.cat([y, y_hat.to(y.dtype)])
-        rs, gs, frs, fgs = [], [], [], []
-        for d in [self.disc_s] + [getattr(self, f"disc_p{p}") for p in self.periods]:
-            score, fmap = d(both)
-            rs.append(score[:b])
-            gs.append(score[b:])
-            frs.append([f[:b] for f in fmap])
-            fgs.append([f[b:] for f in fmap])
-        return rs, gs, frs, fgs
+        return collect(real_and_generated(d, y, y_hat) for d in
+                       [self.disc_s] + [getattr(self, f"disc_p{p}") for p in self.periods])
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ channels-first (B, C, T) inside; a weight-normed conv is
 ``layers.Conv1d(weight_norm=True)`` with the flax layout's ``<name>_conv``
 kernel and ``<name>`` gain. ``Generator`` takes and returns the JAX
 package's layout at its boundary: mel (B, T, 80) → wav (B, T·hop). The
-discriminators are the ones VITS trains with; HiFi-GAN's own trainer is not
-ported yet.
+discriminators take wavs (B, T); their feature maps are channels-first.
+``HifiganDiscriminators`` (MPD + MSD) is what ``gan_train`` trains;
+VITS trains ``DiscriminatorS`` and ``DiscriminatorP`` under its own names.
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ... import seeded
 from ...config import Config
-from ..layers import Conv1d, Conv2d, ConvTranspose1d
+from ..layers import Conv1d, Conv2d, ConvTranspose1d, SpectralNorm
 
 LRELU_SLOPE = 0.1
 
@@ -182,26 +184,123 @@ class DiscriminatorP(nn.Module):
 class DiscriminatorS(nn.Module):
     """Scale discriminator: grouped strided 1D convs (flax SAME padding,
     which with a stride pads ``(ceil(T/s)-1)·s + k - T``, the low half
-    first — not torch's symmetric padding)."""
+    first — not torch's symmetric padding). Weight-normed convs, or, with
+    ``use_spectral_norm``, plain convs inside ``SpectralNorm`` whose
+    statistics move when ``train`` is set."""
 
     SPEC = [(128, 15, 1, 1), (128, 41, 2, 4), (256, 41, 2, 16), (512, 41, 4, 16),
             (1024, 41, 4, 16), (1024, 41, 1, 16), (1024, 5, 1, 1)]
 
-    def __init__(self):
+    def __init__(self, use_spectral_norm: bool = False):
         super().__init__()
+        self.use_spectral_norm = use_spectral_norm
         in_ch = 1
         for i, (ch, k, s, g) in enumerate(self.SPEC):
-            self.add_module(f"convs_{i}", wn_conv(in_ch, ch, k, stride=s, groups=g))
+            self.add_module(f"convs_{i}", self._conv(in_ch, ch, k, s, g))
             in_ch = ch
-        self.conv_post = wn_conv(in_ch, 1, 3)
+        self.conv_post = self._conv(in_ch, 1, 3)
 
-    def forward(self, x):
+    def _conv(self, in_ch, out_ch, k, stride=1, groups=1) -> nn.Module:
+        if self.use_spectral_norm:
+            return SpectralNorm(Conv1d(in_ch, out_ch, k, stride=stride, groups=groups,
+                                       time_major=False))
+        return wn_conv(in_ch, out_ch, k, stride=stride, groups=groups)
+
+    def layer(self, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
+        conv = getattr(self, name)
+        return conv(x, train) if self.use_spectral_norm else conv(x)
+
+    def forward(self, x, train: bool = False):
         b = x.shape[0]
         x = x[:, None]                                   # (B, 1, T)
         fmap = []
         for i in range(len(self.SPEC)):
-            x = F.leaky_relu(getattr(self, f"convs_{i}")(x), LRELU_SLOPE)
+            x = F.leaky_relu(self.layer(f"convs_{i}", x, train), LRELU_SLOPE)
             fmap.append(x)
-        x = self.conv_post(x)
+        x = self.layer("conv_post", x, train)
         fmap.append(x)
         return x.reshape(b, -1), fmap
+
+
+def real_and_generated(disc: nn.Module, y: torch.Tensor, y_hat: torch.Tensor,
+                       train: bool = False):
+    """One discriminator on real ``y`` and generated ``y_hat`` → (score
+    real, score generated, feature maps real, feature maps generated). The
+    two go through as one batch, except through a spectral-normed
+    discriminator that updates its statistics: there flax's second call
+    starts from the ``u`` the first one stored, so it runs twice, real
+    first."""
+    if getattr(disc, "use_spectral_norm", False) and train:
+        (r, fr), (g, fg) = disc(y, True), disc(y_hat, True)
+        return r, g, fr, fg
+    b = y.shape[0]
+    score, fmap = disc(torch.cat([y, y_hat.to(y.dtype)]))
+    return score[:b], score[b:], [f[:b] for f in fmap], [f[b:] for f in fmap]
+
+
+def collect(pairs):
+    """[(r, g, fr, fg), ...] per discriminator → (rs, gs, frs, fgs), the
+    JAX package's output of a multi-discriminator."""
+    return tuple(list(x) for x in zip(*pairs))
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """Periods 2, 3, 5, 7, 11 → (scores real, scores generated, feature
+    maps real, feature maps generated)."""
+    periods = (2, 3, 5, 7, 11)
+
+    def __init__(self):
+        super().__init__()
+        for p in self.periods:
+            self.add_module(f"disc_{p}", DiscriminatorP(p))
+
+    def forward(self, y, y_hat):
+        return collect(real_and_generated(getattr(self, f"disc_{p}"), y, y_hat)
+                       for p in self.periods)
+
+
+def avg_pool1d(x: torch.Tensor, kernel: int, stride: int, pad: int) -> torch.Tensor:
+    """torch ``AvgPool1d`` over (B, T), the zero padding counted."""
+    return F.avg_pool1d(x[:, None], kernel, stride, pad, count_include_pad=True)[:, 0]
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """Three scale discriminators, the first spectral-normed, with ×2
+    average pooling between them."""
+
+    def __init__(self):
+        super().__init__()
+        for i in range(3):
+            self.add_module(f"disc_{i}", DiscriminatorS(use_spectral_norm=i == 0))
+
+    def forward(self, y, y_hat, train: bool = False):
+        out = []
+        for i in range(3):
+            if i:
+                y, y_hat = avg_pool1d(y, 4, 2, 2), avg_pool1d(y_hat, 4, 2, 2)
+            out.append(real_and_generated(getattr(self, f"disc_{i}"), y, y_hat, train))
+        return collect(out)
+
+
+class HifiganDiscriminators(nn.Module):
+    """MPD + MSD in one call: ``(y, y_hat, train)`` → (mpd, msd) outputs."""
+
+    def __init__(self):
+        super().__init__()
+        self.mpd = MultiPeriodDiscriminator()
+        self.msd = MultiScaleDiscriminator()
+
+    def forward(self, y, y_hat, train: bool = False):
+        return self.mpd(y, y_hat), self.msd(y, y_hat, train)
+
+
+def init_generator(seed: int = 0, cfg=None) -> Generator:
+    """A ``Generator`` at ``cfg`` (default ``hifigan_config()``) with
+    weights made from ``seed``, on the CPU."""
+    with seeded(seed):
+        return Generator(cfg or hifigan_config())
+
+
+def init_discriminators(seed: int = 0) -> HifiganDiscriminators:
+    with seeded(seed):
+        return HifiganDiscriminators()

@@ -1,9 +1,14 @@
-"""WaveRNN (fatchord alternating) vocoder, inference in RAW and MOL mode.
+"""WaveRNN (fatchord alternating) vocoder: the training forward, and
+inference in RAW and MOL mode.
 
-Port of ``mockingbird_tpu/models/vocoder/wavernn.py``: MelResNet with running
-statistics + Stretch2d upsampler, 2×GRU + 3×FC → a 512-class RAW softmax or
-the 30-parameter mixture-of-logistics (MOL) head, batched fold/overlap
-generation with equal-power crossfade, mu-law (RAW) + de-emphasis.
+Port of ``mockingbird_tpu/models/vocoder/wavernn.py``: MelResNet (flax's
+BatchNorm: batch statistics in training, running ones in eval) + Stretch2d
+upsampler, 2×GRU + 3×FC → a 512-class RAW softmax or the 30-parameter
+mixture-of-logistics (MOL) head, batched fold/overlap generation with
+equal-power crossfade, mu-law (RAW) + de-emphasis. The training forward
+(``forward``: ``features`` then ``head``) runs the GRUs over the whole
+sequence through the fused GRU call on the very parameters ``gen_step``'s
+cells use.
 
 Two generators, as in the JAX package:
   * RAW mode takes the fused path by default: upsample → fold on the device
@@ -33,7 +38,7 @@ from ...config import Config
 from ...dsp import decode_mu_law, inv_preemphasis_np
 from ...ops.wavernn_sample import pack_wavernn_weights, wavernn_sample
 from ...weights import load_flax, load_npz
-from ..layers import FusedGRUCell
+from ..layers import Dense, FlaxBatchNorm, FusedGRUCell, with_bias
 from .distribution import sample_from_discretized_mix_logistic
 
 
@@ -70,9 +75,9 @@ class ResBlock(nn.Module):
     def __init__(self, dims: int):
         super().__init__()
         self.conv1 = nn.Conv1d(dims, dims, 1, bias=False)
-        self.bn1 = nn.BatchNorm1d(dims)
+        self.bn1 = FlaxBatchNorm(dims)
         self.conv2 = nn.Conv1d(dims, dims, 1, bias=False)
-        self.bn2 = nn.BatchNorm1d(dims)
+        self.bn2 = FlaxBatchNorm(dims)
 
     def forward(self, x):
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -86,7 +91,7 @@ class MelResNet(nn.Module):
         super().__init__()
         self.res_blocks = c.res_blocks
         self.conv_in = nn.Conv1d(c.feat_dims, c.compute_dims, 2 * c.pad + 1, bias=False)
-        self.bn = nn.BatchNorm1d(c.compute_dims)
+        self.bn = FlaxBatchNorm(c.compute_dims)
         for i in range(c.res_blocks):
             self.add_module(f"res_{i}", ResBlock(c.compute_dims))
         self.conv_out = nn.Conv1d(c.compute_dims, c.res_out_dims, 1)
@@ -95,7 +100,8 @@ class MelResNet(nn.Module):
         x = torch.relu(self.bn(self.conv_in(x.transpose(1, 2))))
         for i in range(self.res_blocks):
             x = getattr(self, f"res_{i}")(x)
-        return self.conv_out(x).transpose(1, 2)
+        # flax rounds the product below f32 before it adds the bias
+        return with_bias(F.conv1d, x, self.conv_out.weight, self.conv_out.bias).transpose(1, 2)
 
 
 class UpsampleNetwork(nn.Module):
@@ -131,8 +137,11 @@ class _RNN(nn.Module):
 
 
 class WaveRNN(nn.Module):
-    """Core net: the upsampler and the recurrent/FC weights; ``gen_step``
-    is one autoregressive step."""
+    """Core net: the upsampler and the recurrent/FC weights. ``forward`` is
+    the training forward (in ``train()`` mode the BatchNorms take batch
+    statistics and move their running ones, as flax's ``train=True``);
+    ``gen_step`` is one autoregressive step. ``cfg.remat``: the backward
+    recomputes the GRUs instead of keeping their activations."""
 
     def __init__(self, c):
         super().__init__()
@@ -140,13 +149,35 @@ class WaveRNN(nn.Module):
             raise ValueError(f"WaveRNN mode {c.mode!r}: 'RAW' or 'MOL'")
         self.n_classes = 2 ** c.bits if c.mode == "RAW" else 30
         self.aux_dims = c.res_out_dims // 4
+        self.remat = bool(c.get("remat", False))
         self.upsample = UpsampleNetwork(c)
-        self.I = nn.Linear(c.feat_dims + self.aux_dims + 1, c.rnn_dims)
+        self.I = Dense(c.feat_dims + self.aux_dims + 1, c.rnn_dims)
         self.rnn1 = _RNN(FusedGRUCell(c.rnn_dims, c.rnn_dims))
         self.rnn2 = _RNN(FusedGRUCell(c.rnn_dims + self.aux_dims, c.rnn_dims))
-        self.fc1 = nn.Linear(c.rnn_dims + self.aux_dims, c.fc_dims)
-        self.fc2 = nn.Linear(c.fc_dims + self.aux_dims, c.fc_dims)
-        self.fc3 = nn.Linear(c.fc_dims, self.n_classes)
+        self.fc1 = Dense(c.rnn_dims + self.aux_dims, c.fc_dims)
+        self.fc2 = Dense(c.fc_dims + self.aux_dims, c.fc_dims)
+        self.fc3 = Dense(c.fc_dims, self.n_classes)
+
+    def features(self, x: torch.Tensor, mels: torch.Tensor):
+        """Everything before the FC head: x (B, T) in [-1, 1], mels (B,
+        T/hop + 2·pad, M) → (h (B, T, rnn), a3, a4 (B, T, aux_d))."""
+        d = self.aux_dims
+        mels_up, aux = self.upsample(mels)
+        a1, a2, a3, a4 = (aux[..., i * d:(i + 1) * d] for i in range(4))
+        h = self.I(torch.cat([x[..., None], mels_up, a1], dim=-1))
+        h = self.rnn1.cell.sequence(h, self.remat) + h
+        h = self.rnn2.cell.sequence(torch.cat([h, a2], dim=-1), self.remat) + h
+        return h, a3, a4
+
+    def head(self, h: torch.Tensor, a3: torch.Tensor, a4: torch.Tensor) -> torch.Tensor:
+        """FC head: (·, rnn) + aux → (·, n_classes) logits."""
+        h = torch.relu(self.fc1(torch.cat([h, a3], dim=-1)))
+        h = torch.relu(self.fc2(torch.cat([h, a4], dim=-1)))
+        return self.fc3(h)
+
+    def forward(self, x: torch.Tensor, mels: torch.Tensor) -> torch.Tensor:
+        """x (B, T), mels (B, T/hop + 2·pad, M) → logits (B, T, n_classes)."""
+        return self.head(*self.features(x, mels))
 
     def upsample_features(self, mels):
         """Eval-mode conditioning features for generation."""
@@ -252,6 +283,12 @@ class WaveRnnVocoder:
         self.packed = None
         if verbose:
             print(f"Loaded WaveRNN from {model_fpath}")
+
+    def load_state_dict(self, state: dict) -> None:
+        """Take a ``WaveRNN``'s state dict (a trainer's model at a
+        checkpoint) and drop the packed weights, as ``load`` does."""
+        self.model.load_state_dict(state)
+        self.packed = None
 
     @staticmethod
     def _fold_plan(t_up: int, target: int, overlap: int):

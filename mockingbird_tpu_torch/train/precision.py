@@ -14,6 +14,7 @@ Port of ``mockingbird_tpu/train/precision.py``, with its semantics:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch.func import functional_call
@@ -56,13 +57,30 @@ class Policy:
     def uncast(self, tree):
         return cast_floating(tree, torch.float32) if self.is_mixed else tree
 
-    def apply(self, module: torch.nn.Module, *args, **kwargs):
-        """``module(*args, **kwargs)`` with parameters and floating positional
-        inputs cast to the compute dtype; outputs uncast. Keyword arguments
-        (options, draws handed in) pass as they are, as the JAX step passes
-        its key and flags."""
+    def apply(self, module: torch.nn.Module, *args, method: Optional[str] = None, **kwargs):
+        """``module(*args, **kwargs)`` (or its method ``method``) with
+        parameters and floating positional inputs cast to the compute dtype;
+        outputs uncast. Keyword arguments (options, draws handed in, inputs
+        flax receives uncast) pass as they are, as the JAX step passes its
+        key and flags."""
         if not self.is_mixed:
-            return module(*args, **kwargs)
+            return (module if method is None else getattr(module, method))(*args, **kwargs)
         params = {k: v.to(self.compute_dtype) for k, v in module.named_parameters()}
+        if method is not None:
+            module = _Bound(module, method)
+            params = {f"m.{k}": v for k, v in params.items()}
         out = functional_call(module, params, self.cast(args), kwargs)
         return self.uncast(out)
+
+
+class _Bound(torch.nn.Module):
+    """``module``'s method ``method`` as the forward of a module, for
+    ``functional_call``."""
+
+    def __init__(self, module: torch.nn.Module, method: str):
+        super().__init__()
+        self.m = module
+        self.method = method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.m, self.method)(*args, **kwargs)

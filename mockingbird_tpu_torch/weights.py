@@ -22,7 +22,14 @@ torch module tree maps every leaf; only the layouts differ:
   * flax ``WeightNorm(Conv(name=<n>_conv), name=<n>)`` keeps the conv's
     ``kernel``/``bias`` under the sibling ``<n>_conv`` and the gain under
     ``<n>/"<n>_conv/kernel/scale"``; the port's weight-normed conv is one
-    child ``<n>`` holding direction, bias and gain.
+    child ``<n>`` holding direction, bias and gain. A conv flax named
+    automatically (``Conv_3``) carries that name as ``flax_name`` and takes
+    the place of ``<n>_conv``;
+  * flax ``SpectralNorm(Conv(name=<c>), name=<n>)`` keeps the kernel/bias
+    under ``<c>`` in ``params`` and the power iteration's state under
+    ``<n>/"<c>/kernel/u"`` and ``"<c>/kernel/sigma"`` in ``batch_stats``;
+    the port's ``SpectralNorm`` child ``<n>`` holds the conv as ``layer``
+    and the buffers ``u`` and ``sigma``.
 
 The load is strict: a torch parameter with no flax leaf, a flax leaf no
 torch parameter took, or a shape that differs, raises.
@@ -37,7 +44,7 @@ import torch
 import torch.nn as nn
 
 from .models.layers import (Conv1d, Conv2d, ConvTranspose1d, FusedGRUCell, FusedLSTMLayer,
-                            GRULayer, LSTMCell)
+                            GRULayer, LSTMCell, SpectralNorm)
 
 
 class WeightMismatch(KeyError):
@@ -119,6 +126,11 @@ def _load_conv(m: nn.Module, p: _Tree, scale: Optional[np.ndarray]) -> None:
         _set(m.scale, scale, p.path + "/scale")
 
 
+def _conv_name(name: str, conv: nn.Module) -> str:
+    """The flax name of a normed child ``name``'s conv."""
+    return getattr(conv, "flax_name", None) or f"{name}_conv"
+
+
 def _load(m: nn.Module, p: _Tree, s: Optional[_Tree]) -> None:
     if isinstance(m, (Conv1d, Conv2d, ConvTranspose1d)):
         _load_conv(m, p, None)
@@ -159,9 +171,19 @@ def _load(m: nn.Module, p: _Tree, s: Optional[_Tree]) -> None:
         for name, child in m.named_children():
             if not any(True for _ in child.parameters()):
                 continue
+            if isinstance(child, SpectralNorm):
+                conv = _conv_name(name, child.layer)
+                if s is None:
+                    raise WeightMismatch(f"{p.path}/{name}: SpectralNorm needs batch_stats")
+                _load_conv(child.layer, p.sub(conv), None)
+                stats = s.sub(name)
+                _set(child.u, stats.leaf(f"{conv}/kernel/u"), f"{stats.path}/{conv}/kernel/u")
+                _set(child.sigma, stats.leaf(f"{conv}/kernel/sigma"),
+                     f"{stats.path}/{conv}/kernel/sigma")
+                continue
             if getattr(child, "weight_norm", False):
-                _load_conv(child, p.sub(f"{name}_conv"),
-                           p.sub(name).leaf(f"{name}_conv/kernel/scale"))
+                conv = _conv_name(name, child)
+                _load_conv(child, p.sub(conv), p.sub(name).leaf(f"{conv}/kernel/scale"))
                 continue
             cs = s.sub(name) if s is not None and s.has(name) else None
             _load(child, p.sub(name), cs)
@@ -234,8 +256,8 @@ def _dump(m: nn.Module, path: str):
     if isinstance(m, nn.Embedding):
         return {"embedding": _np(m.weight)}, None
     if isinstance(m, (FusedGRUCell, GRULayer)):
+        _check_zero_slot(m.bias_hh_rz, path + "/hr,hz/bias")
         if isinstance(m, GRULayer):
-            _check_zero_slot(m.bias_hh_rz, path + "/hr,hz/bias")
             w_ih, b_ih, w_hh, bn = m.weight_ih_l0, m.bias_ih_l0, m.weight_hh_l0, m.bias_hn
         else:
             w_ih, b_ih, w_hh, bn = m.wi.weight, m.wi.bias, m.wh.weight, m.bn
@@ -256,10 +278,16 @@ def _dump(m: nn.Module, path: str):
     for name, child in m.named_children():
         if not any(True for _ in child.parameters()):
             continue
+        if isinstance(child, SpectralNorm):
+            conv = _conv_name(name, child.layer)
+            params[conv] = _dump_conv(child.layer)
+            stats[name] = {f"{conv}/kernel/u": _np(child.u),
+                           f"{conv}/kernel/sigma": _np(child.sigma)}
+            continue
         if getattr(child, "weight_norm", False):
-            conv = _dump_conv(child)
-            params[f"{name}_conv"] = conv
-            params[name] = {f"{name}_conv/kernel/scale": _np(child.scale)}
+            conv = _conv_name(name, child)
+            params[conv] = _dump_conv(child)
+            params[name] = {f"{conv}/kernel/scale": _np(child.scale)}
             continue
         p, s = _dump(child, f"{path}/{name}")
         params[name] = p

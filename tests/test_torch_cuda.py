@@ -485,3 +485,66 @@ def test_mol_generator_on_card_matches_cpu(card):
     want = cpu.generate(mels, aux, draws=draws)
     got = gpu.generate(mels.to(card), aux.to(card), draws=tuple(d.to(card) for d in draws))
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["hifigan", "fregan"])
+def test_discriminators_with_spectral_norm_on_card_match_cpu(card, arch):
+    """Both discriminator bundles at full width, seeded, on (2, 4096) real
+    and generated wavs with ``train`` on (the spectral-norm statistics
+    move): every score and feature map on the card (TF32 off) within 1e-4
+    relative L2 of the CPU's, the stored ``u``/``sigma`` within 1e-5, and
+    the gradients of a discriminator loss within 1e-4 relative L2."""
+    from mockingbird_tpu_torch.models.vocoder import gan_losses
+    from mockingbird_tpu_torch.models.vocoder.fregan import FreGanDiscriminators
+    from mockingbird_tpu_torch.models.vocoder.hifigan import HifiganDiscriminators
+    cls = HifiganDiscriminators if arch == "hifigan" else FreGanDiscriminators
+    torch.manual_seed(0)
+    cpu = cls()
+    gpu = cls().to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    y, y_hat = torch.from_numpy((0.3 * rng.randn(2, 2, 4096)).astype(np.float32))
+    outs = {}
+    for name, m in (("cpu", cpu), ("card", gpu)):
+        dev = next(m.parameters()).device
+        mpd, msd = m(y.to(dev), y_hat.to(dev), True)
+        loss = (gan_losses.discriminator_loss(mpd[0], mpd[1])[0]
+                + gan_losses.discriminator_loss(msd[0], msd[1])[0])
+        loss.backward()
+        flat = [t for out in (mpd, msd) for part in out for x in part
+                for t in (x if isinstance(x, list) else [x])]
+        outs[name] = ([t.detach().cpu() for t in flat], [p.grad.cpu() for p in m.parameters()],
+                      [b.cpu() for n, b in m.named_buffers() if n.endswith((".u", ".sigma"))])
+    for got, want in zip(outs["card"][0], outs["cpu"][0]):
+        assert float((got - want).norm()) <= 1e-4 * float(want.norm())
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(outs["card"][1], outs["cpu"][1]))
+    assert num ** 0.5 <= 1e-4 * sum(float((b ** 2).sum()) for b in outs["cpu"][1]) ** 0.5
+    for got, want in zip(outs["card"][2], outs["cpu"][2]):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_wavernn_training_forward_on_card_matches_cpu(card, width):
+    """The WaveRNN training forward (``train()``: batch-statistics
+    BatchNorms, the GRUs through the fused call) at batch 4 × 1280 steps,
+    seeded: the logits on the card (TF32 off) within 1e-4 of the CPU's
+    largest, the moved running statistics within 1e-5, and with ``remat``
+    the same logits."""
+    cfg = wavernn_config().merge(dict(SMALL, seq_len=1280) if width == "small" else {})
+    torch.manual_seed(0)
+    cpu = WaveRNN(cfg).train()
+    gpu = WaveRNN(cfg.merge(dict(remat=False))).to(card).train()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    t_frames = 1280 // cfg.hop_size
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 1280)).astype(np.float32))
+    mels = torch.from_numpy((rng.randn(4, t_frames + 2 * cfg.pad, 80) * 0.5).astype(np.float32))
+    want = cpu(x, mels).detach()
+    got = gpu(x.to(card), mels.to(card)).detach()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * scale, rtol=0)
+    for (name, a), b in zip(gpu.named_buffers(), cpu.buffers()):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0, msg=name)
+    gpu.remat = True
+    again = gpu(x.to(card), mels.to(card)).detach()
+    torch.testing.assert_close(again, got, atol=1e-6 * scale, rtol=0)

@@ -384,3 +384,28 @@ def test_port_modules_of_the_trainer_slice_are_guarded():
                  "models.tacotron.preprocess", "models.vocoder.distribution",
                  "train.checkpoint", "train.logging", "weights"):
         assert f"mockingbird_tpu_torch.{name}" in names, name
+
+
+def test_port_modules_of_the_vocoder_trainers_are_guarded():
+    """The modules this guard file's import test walks include every module
+    of the GAN-vocoder and WaveRNN trainers."""
+    names = set(_modules())
+    for name in ("models.vocoder.dataset", "models.vocoder.gan_train",
+                 "models.vocoder.wavernn_train", "models.vocoder.gan_losses",
+                 "models.vocoder.fregan", "models.layers", "train.precision"):
+        assert f"mockingbird_tpu_torch.{name}" in names, name
+
+
+def test_vocoder_trainer_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The vocoder trainers ask for ``cuda`` by default and raise without a
+    card, before touching any file."""
+    import importlib
+    gan = importlib.import_module("mockingbird_tpu_torch.models.vocoder.gan_train")
+    wavernn = importlib.import_module("mockingbird_tpu_torch.models.vocoder.wavernn_train")
+    for fn in (gan.train, wavernn.train):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (gan.train, wavernn.train):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn("run", tmp_path, tmp_path)
+    assert not list(tmp_path.iterdir())
