@@ -88,11 +88,30 @@ Phases, each printing its elapsed seconds:
      counted: at least one per sample); the last checkpoint's sampler
      weights are the trained model's, not the first's; K1 held against its
      plain version on the last sampler call of this path (its own folds,
-     greedy and sampled, f32 and bf16 weights, bounds as in 12) and timed;
+     greedy and sampled, f32 and bf16 weights, bounds as in 14) and timed;
      one MOL step; the
      ``remat`` step against the plain one in f32 (TF32 off); the RAW step
      timed warm with its peak memory;
-  12. each kernel held against its plain PyTorch version on the card, with
+  12. GE2E training: ``preprocess_speaker_dirs`` over a synthetic corpus
+     (64 speakers x 12 utterances of 2-4 s of a tone in bursts), then
+     ``encoder.train.train`` at full width (3 x LSTM 256) and the default
+     batch (64 speakers x 10 partials x 160 frames), bf16, seeded weights,
+     for ``ENC_STEPS`` steps (checkpoints load back; the ``encoder.npz``
+     export loads into ``SpeakerEncoderInference`` with equal embeddings);
+     the trainer's step timed warm with its peak memory and busy share, the
+     host sampler's time per batch; one f32 step at 8 x 5 (TF32 off) on the
+     card against the CPU (loss, EER, gradients), and ``remat=True``
+     against plain. No kernel on this path;
+  13. ppg2mel training: ``preprocess_vc_dataset`` over 16 synthetic 2-5 s
+     wavs through the card's seeded extractor and encoder (12 train, 2 dev,
+     2 eval), then ``ppg.train.train`` at the width of
+     ``saved_models/ppg_run/ppg2mel.json`` (10.34 M parameters), bf16,
+     batch 8, ``PPG_STEPS`` steps with dev validation and the best
+     checkpoint every 2; the trainer's step timed warm by part through
+     hooks (the decoder loop's share), with its peak memory and busy share;
+     one f32 training step (batch 2, dropout masks handed in, TF32 off) on
+     the card against the CPU. No kernel on this path;
+  14. each kernel held against its plain PyTorch version on the card, with
      the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
      (its fold-major layout) on the TTS path's own inputs, then timed at
      one utterance's folds and at 4 folds per SM, with the launch plan, the
@@ -100,7 +119,7 @@ Phases, each printing its elapsed seconds:
      (alignment search, exactly equal) on the training step's own inputs
      and on ragged, tied and band-less cases, timed per call with CUDA
      events, the kernel's own device time from a profiler trace beside it;
-  13. one ``kernels`` JSON line, then the contract line
+  15. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
 Every path is timed under PyTorch's defaults, which is what a caller of the
@@ -131,19 +150,22 @@ import torch
 from mockingbird_tpu_torch.config import Config
 from mockingbird_tpu_torch.models.tacotron import (Synthesizer, SynthesizerDataset, Tacotron,
                                                    collate_synthesizer, tacotron_config)
-from mockingbird_tpu_torch.models.tacotron.train import (clip_by_global_norm, loss_of,
-                                                         make_train_step, run_gta_synthesis)
+from mockingbird_tpu_torch.models.tacotron.train import (loss_of, make_train_step,
+                                                         run_gta_synthesis)
 from mockingbird_tpu_torch.models.tacotron.train import make_optimizer as taco_optimizer
-from mockingbird_tpu_torch.models.tacotron.train import to_device as taco_to_device
 from mockingbird_tpu_torch.models.tacotron.train import train as taco_train
 from mockingbird_tpu_torch.models.vits import VitsSynthesizer, train as vits_train
 from mockingbird_tpu_torch.models.vits import model as vits_model_module
 from mockingbird_tpu_torch.models.vits.model import vits_config
 from mockingbird_tpu_torch.models.vits.train import (BUCKET_BOUNDARIES, BucketBatcher,
-                                                     VitsDataset, make_optimizer, make_vits_step,
-                                                     to_device)
+                                                     VitsDataset, make_optimizer, make_vits_step)
 from mockingbird_tpu_torch.dsp import decode_mulaw8_to_int16, load_wav, save_wav
-from mockingbird_tpu_torch.models.ppg import MelDecoderMOLv2, PPGExtractor
+from mockingbird_tpu_torch.models.encoder import SpeakerEncoderInference
+from mockingbird_tpu_torch.models.encoder import model as encoder_model
+from mockingbird_tpu_torch.models.encoder.dataset import (SpeakerBatchSampler,
+                                                          SpeakerVerificationDataset)
+from mockingbird_tpu_torch.models.ppg import MelDecoderMOLv2, PPGExtractor, ppg2mel_config
+from mockingbird_tpu_torch.models.ppg.convert import preprocess_vc_dataset
 from mockingbird_tpu_torch.models.layers import Conv1d, Conv2d, ConvTranspose1d
 from mockingbird_tpu_torch.models.vocoder import (FreGanDiscriminators, GanVocoder, Generator,
                                                   HifiganDiscriminators, WaveRNN, WaveRnnVocoder,
@@ -166,10 +188,15 @@ from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, plan
 from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline, make_voice_converter
 from mockingbird_tpu_torch.text import text_to_sequence
 from mockingbird_tpu_torch.train.checkpoint import CheckpointManager
+from mockingbird_tpu_torch.train.optim import clip_by_global_norm
 from mockingbird_tpu_torch.train.precision import Policy
+from mockingbird_tpu_torch.train.step import to_device
 from mockingbird_tpu_torch.weights import save_npz, to_flax
 
 taco_train_module = importlib.import_module("mockingbird_tpu_torch.models.tacotron.train")
+enc_train = importlib.import_module("mockingbird_tpu_torch.models.encoder.train")
+enc_preprocess = importlib.import_module("mockingbird_tpu_torch.models.encoder.preprocess")
+ppg_train = importlib.import_module("mockingbird_tpu_torch.models.ppg.train")
 wavernn_train_module = importlib.import_module("mockingbird_tpu_torch.models.vocoder.wavernn_train")
 
 ROOT = Path(__file__).resolve().parent
@@ -228,6 +255,20 @@ WAVERNN_STEPS = 4
 WAVERNN_SAVE_EVERY = 2
 WAVERNN_SAMPLES = 2
 WAVERNN_TRAIN_CFG: dict = {}  # overrides of the committed config (none on the card)
+# the GE2E trainer: a synthetic corpus of 64 speakers x 12 utterances of 2-4 s,
+# the trainer's default batch (64 speakers x 10 partials of 160 frames)
+ENC_SPEAKERS = 64
+ENC_UTTS = 12
+ENC_SECONDS = (2.0, 4.0)
+ENC_BATCH = (64, 10)
+ENC_STEPS = 4
+ENC_F32_BATCH = (8, 5)
+# the ppg2mel trainer: 16 synthetic utterances of 2-5 s (12 train, 2 dev,
+# 2 eval by the id's last digit), batch 8
+PPG_UTTS = 16
+PPG_SECONDS = (2.0, 5.0)
+PPG_BATCH = 8
+PPG_STEPS = 4
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -1161,7 +1202,7 @@ def phase_tacotron_train(dev, tmp: Path):
     with Phase("Tacotron training: the trainer's step, by part (synchronised at each mark)"):
         ds = SynthesizerDataset(tmp / "taco_data/train.txt", tmp / "taco_data/mels",
                                 tmp / "taco_data/embeds")
-        batch = taco_to_device(collate_synthesizer([ds[i] for i in range(batch_size)], r=r),
+        batch = to_device(collate_synthesizer([ds[i] for i in range(batch_size)], r=r),
                                dev)
         opt = taco_optimizer(model, 1e-3)
         step = make_train_step(model, opt, r, "bf16")
@@ -1222,7 +1263,7 @@ def phase_tacotron_train(dev, tmp: Path):
         results = {}
         for name, m, d, cudnn in (("cpu", cpu, "cpu", True), ("card", model, dev, True),
                                   ("card, cuDNN off", model, dev, False)):
-            b = taco_to_device(host, d)
+            b = to_device(host, d)
             m.zero_grad(set_to_none=True)
             with full_f32() if d != "cpu" else nullcontext(), \
                     torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
@@ -1408,7 +1449,7 @@ def phase_gan_train(dev, tmp: Path):
 
     with Phase("GAN vocoder training: the trainer's step, by part (synchronised at each hook)"):
         ds = MelDataset(get_dataset_filelist(data)[0], cfg, syn_dir=data, seed=0)
-        batch = taco_to_device(collate_gan([ds[i] for i in range(cfg.batch_size)]), dev)
+        batch = to_device(collate_gan([ds[i] for i in range(cfg.batch_size)]), dev)
         opt_g = gan_optimizer(gen.parameters(), cfg)
         opt_d = gan_optimizer(disc.parameters(), cfg)
         step_fn = make_gan_step(gen, disc, opt_g, opt_d, cfg, "bf16")
@@ -1464,7 +1505,7 @@ def phase_gan_train(dev, tmp: Path):
             step1 = make_gan_step(g_m, d_m, gan_optimizer(g_m.parameters(), cfg0),
                                   gan_optimizer(d_m.parameters(), cfg0), cfg0, "fp32")
             with full_f32() if d != "cpu" else nullcontext():
-                losses = [float(v) for v in step1(taco_to_device(host, d))]
+                losses = [float(v) for v in step1(to_device(host, d))]
             results[name] = (losses, [p.grad.detach().cpu().double() for p in g_m.parameters()],
                              [p.grad.detach().cpu().double() for p in d_m.parameters()],
                              [b.detach().cpu().double() for n, b in d_m.named_buffers()
@@ -1631,11 +1672,11 @@ def phase_wavernn_train(dev, tmp: Path):
     with Phase("WaveRNN training: one MOL step, remat against plain in f32, the step timed"):
         ds = WaveRnnDataset(data / "train.txt", data / "mels_gta", data / "audio", cfg)
         rng = random.Random(0)
-        batch = taco_to_device(collate_wavernn([ds[i] for i in range(cfg.batch_size)], cfg, rng),
+        batch = to_device(collate_wavernn([ds[i] for i in range(cfg.batch_size)], cfg, rng),
                                dev)
         mol_cfg = Config(cfg).merge(dict(mode="MOL"))
         mol_ds = WaveRnnDataset(data / "train.txt", data / "mels_gta", data / "audio", mol_cfg)
-        mol_batch = taco_to_device(collate_wavernn(
+        mol_batch = to_device(collate_wavernn(
             [mol_ds[i] for i in range(cfg.batch_size)], mol_cfg, random.Random(0)), dev)
         mol = WaveRNN(mol_cfg).to(dev).train()
         mol_step = make_wavernn_step(mol, torch.optim.Adam(mol.parameters(), lr=1e-4), "MOL",
@@ -1671,6 +1712,275 @@ def phase_wavernn_train(dev, tmp: Path):
               f"{peak:.2f} GiB")
         print("  one step: " + device_split(lambda: step(batch)))
     return k1_err
+
+
+# ---------------------------------------------------------------------------
+# the GE2E and ppg2mel trainers
+# ---------------------------------------------------------------------------
+
+def _tone_wav(rng, seconds: float, f0: float, sr: int = 16000) -> np.ndarray:
+    """Harmonics of ``f0`` with vibrato, in bursts of 3 a second (the energy
+    VAD keeps them), over noise."""
+    tt = np.arange(int(seconds * sr)) / sr
+    f = f0 * (1 + 0.05 * np.sin(2 * np.pi * rng.uniform(3, 6) * tt))
+    wav = sum(0.3 / k * np.sin(k * 2 * np.pi * np.cumsum(f) / sr) for k in range(1, 5))
+    bursts = np.sin(2 * np.pi * 3 * tt + rng.uniform(0, 6)) > -0.3
+    return (wav * bursts + 0.01 * rng.randn(len(tt))).astype(np.float32)
+
+
+def _timed_steps(step, n: int = 3) -> list:
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return [round(w * 1e3, 1) for w in walls]
+
+
+def _grads(module) -> list:
+    return [p.grad.detach().cpu().double() for p in module.parameters()]
+
+
+def phase_encoder_train(dev, tmp: Path):
+    raw, clean, models = tmp / "enc_raw", tmp / "enc_clean", tmp / "enc_models"
+    s, u = ENC_BATCH
+    with Phase(f"GE2E training: preprocess_speaker_dirs, {ENC_SPEAKERS} speakers x {ENC_UTTS} "
+               f"utterances of {ENC_SECONDS[0]}-{ENC_SECONDS[1]} s"):
+        rng = np.random.RandomState(2)
+        for spk in range(ENC_SPEAKERS):
+            f0 = 90 + 160 * spk / ENC_SPEAKERS
+            for utt in range(ENC_UTTS):
+                d = raw / f"spk{spk:02d}"
+                d.mkdir(parents=True, exist_ok=True)
+                save_wav(_tone_wav(rng, rng.uniform(*ENC_SECONDS), f0), d / f"u{utt:02d}.wav",
+                         16000)
+        zero_counts()
+        t0 = time.perf_counter()
+        enc_preprocess.preprocess_speaker_dirs(sorted(raw.iterdir()), "smoke", tmp, clean,
+                                               device=dev)
+        wall = time.perf_counter() - t0
+        check(not any(read_counts().values()), "a kernel launched in GE2E preprocessing")
+        lens = [np.load(f).shape for f in clean.rglob("*.npy")]
+        check(len(lens) == ENC_SPEAKERS * ENC_UTTS and all(n >= 160 and d == 40 for n, d in lens),
+              f"{len(lens)} mel files")
+        print(f"  {len(lens)} mels of {min(n for n, _ in lens)}-{max(n for n, _ in lens)} frames "
+              f"in {wall:.2f} s")
+
+    with Phase(f"GE2E training: train, {ENC_STEPS} steps of {s} x {u} x 160, bf16"):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = enc_train.train("smoke", clean, models, save_every=2, total_steps=ENC_STEPS,
+                                 speakers_per_batch=s, utterances_per_speaker=u, log_every=1,
+                                 vis_every=ENC_STEPS, precision="bf16", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"  launches on the path: {launches} (0: no kernel on the GE2E training path)")
+        check(not any(launches.values()), "a kernel launched on the GE2E training path")
+        logs = [json.loads(line) for line in
+                (models / "smoke/logs/scalars.jsonl").read_text().splitlines()]
+        check(len(logs) == ENC_STEPS, f"{len(logs)} logged steps")
+        for rec in logs:
+            print("  " + ", ".join(f"{k} {v:.4g}" for k, v in rec.items()))
+            check(all(np.isfinite(v) for v in rec.values()), f"not finite: {rec}")
+        ckpt = CheckpointManager(models / "smoke/ckpt")
+        check(ckpt.steps() == [2, ENC_STEPS], f"checkpoints {ckpt.steps()}")
+        _, state = ckpt.restore_latest(map_location=dev)
+        for name, t in params.state_dict().items():
+            check(torch.equal(state["params"][name], t), f"restored {name} differs")
+        enc = SpeakerEncoderInference.from_checkpoint(models / "smoke/encoder.npz", device=dev)
+        frames = torch.from_numpy(np.load(next(clean.rglob("*.npy")))[:160]).to(dev)
+        frames = frames[None].expand(4, -1, -1).contiguous()
+        with torch.no_grad():
+            want = params["model"](frames).cpu().numpy()
+        check(np.array_equal(enc.embed_frames_batch(frames), want),
+              "the exported encoder's embeddings differ from the trained model's")
+        print(f"  {sum(p.numel() for p in params.parameters())} parameters; {wall:.2f} s wall; "
+              f"checkpoints {ckpt.steps()} load back; encoder.npz loads into "
+              f"SpeakerEncoderInference with equal embeddings")
+
+    with Phase("GE2E training: the trainer's step, warm"):
+        sampler = SpeakerBatchSampler(SpeakerVerificationDataset(clean), s, u, 160, seed=1)
+        t0 = time.perf_counter()
+        host = sampler.next_batch()
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        batch = torch.from_numpy(host).to(dev)
+        opt = enc_train.make_optimizer(params)
+        step = enc_train.make_train_step(params, opt, s, u, "bf16")
+        step(batch)
+        torch.cuda.reset_peak_memory_stats()
+        walls = _timed_steps(lambda: step(batch))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  step {walls} ms ({tf32_state()}); peak memory {peak:.2f} GiB; the host "
+              f"sampler {sample_ms:.1f} ms per batch")
+        print("  one step: " + device_split(lambda: step(batch)))
+
+    with Phase("GE2E training: f32 on the card against the CPU, remat against plain"):
+        fs, fu = ENC_F32_BATCH
+        small = torch.from_numpy(
+            SpeakerBatchSampler(SpeakerVerificationDataset(clean), fs, fu, 160, seed=2)
+            .next_batch())
+        results = {}
+
+        def f32_step(name, d, remat=False, cudnn=True):
+            p = encoder_model.init_params(0, remat=remat).to(d).train()
+            p.load_state_dict(params.state_dict())
+            x = small.to(d).reshape(fs * fu, 160, 40)
+            with full_f32() if d != "cpu" else nullcontext(), \
+                    torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+                embeds = p["model"](x).reshape(fs, fu, -1)
+                loss, sim = encoder_model.ge2e_loss(embeds, p["similarity"]["weight"],
+                                                    p["similarity"]["bias"])
+                loss.backward()
+            results[name] = (loss.item(), float(encoder_model.equal_error_rate(sim, fs, fu)),
+                             _grads(p))
+
+        for args in (("cpu", "cpu"), ("card", dev), ("card, cuDNN off", dev, False, False),
+                     ("card, remat", dev, True)):
+            f32_step(*args)
+        (l_cpu, e_cpu, g_cpu), (l_card, e_card, g_card) = results["cpu"], results["card"]
+        loss_err, grad_err = abs(l_card / l_cpu - 1), _rel_l2(g_card, g_cpu)
+        off = results["card, cuDNN off"]
+        print(f"  batch {fs} x {fu} x 160, TF32 off: loss {l_card:.6f} vs {l_cpu:.6f}, relative "
+              f"error {loss_err:.3g} (bound 1e-5); EER {e_card:.4f} vs {e_cpu:.4f} (bound "
+              f"{1 / (fs * fu):.3g}, one rank); gradients relative L2 {grad_err:.3g} (bound "
+              f"1e-3); cuDNN off: loss {abs(off[0] / l_cpu - 1):.3g}, gradients "
+              f"{_rel_l2(off[2], g_cpu):.3g} (not held)")
+        check(loss_err <= 1e-5, f"the f32 GE2E loss on the card differs by {loss_err}")
+        check(abs(e_card - e_cpu) <= 1 / (fs * fu), f"EER {e_card} vs {e_cpu}")
+        check(grad_err <= 1e-3, f"the f32 GE2E gradients differ by {grad_err}")
+        remat = results["card, remat"]
+        remat_err = max(abs(remat[0] / l_card - 1), _rel_l2(remat[2], g_card))
+        print(f"  remat against plain on the card: loss {remat[0]:.6f} vs {l_card:.6f}, largest "
+              f"relative difference of loss and gradients {remat_err:.3g} (bound 1e-6)")
+        check(remat_err <= 1e-6, f"remat differs from the plain step by {remat_err}")
+
+
+def phase_ppg2mel_train(dev, tmp: Path):
+    cfg = Config(ppg2mel_config()).merge(Config.from_json(PPG_JSON))
+    wavs, vc_dir, models = tmp / "vc_wavs", tmp / "vc_data", tmp / "vc_models"
+    with Phase(f"ppg2mel training: preprocess_vc_dataset, {PPG_UTTS} utterances of "
+               f"{PPG_SECONDS[0]}-{PPG_SECONDS[1]} s"):
+        rng = np.random.RandomState(3)
+        wavs.mkdir()
+        for i, sec in enumerate(np.linspace(*PPG_SECONDS, PPG_UTTS)):
+            save_wav(_tone_wav(rng, sec, rng.uniform(100, 220)), wavs / f"utt_{i:04d}.wav", 16000)
+        zero_counts()
+        t0 = time.perf_counter()
+        preprocess_vc_dataset(wavs, vc_dir, PPGExtractor(verbose=False, device=dev),
+                              SpeakerEncoderInference(device=dev), device=dev)
+        wall = time.perf_counter() - t0
+        check(not any(read_counts().values()), "a kernel launched in VC preprocessing")
+        split = {n: (vc_dir / f"{n}_fidlist.txt").read_text().split()
+                 for n in ("train", "dev", "eval")}
+        check([len(split[n]) for n in ("train", "dev", "eval")] == [12, 2, 2], f"splits {split}")
+        shapes = {sub: np.load(vc_dir / sub / "utt_0000.npy").shape
+                  for sub in ("bnf", "f0", "embed", "mel")}
+        print(f"  {PPG_UTTS} utterances in {wall:.2f} s: 12 train, 2 dev, 2 eval; the first's "
+              f"arrays {shapes}")
+
+    with Phase(f"ppg2mel training: train, {PPG_STEPS} steps of batch {PPG_BATCH}, bf16, "
+               f"validation every 2"):
+        check_config("ppg2mel", cfg, PPG_JSON)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = ppg_train.train("smoke", vc_dir, models, cfg=cfg, batch_size=PPG_BATCH,
+                                total_steps=PPG_STEPS, save_every=2, log_every=1, val_every=2,
+                                precision="bf16", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"  launches on the path: {launches} (0: no kernel on the ppg2mel training path)")
+        check(not any(launches.values()), "a kernel launched on the ppg2mel training path")
+        logs = [json.loads(line) for line in
+                (models / "smoke/logs_ppg2mel/scalars.jsonl").read_text().splitlines()]
+        check(len(logs) == PPG_STEPS + PPG_STEPS // 2, f"{len(logs)} log lines")
+        for rec in logs:
+            print("  " + ", ".join(f"{k} {v:.4g}" for k, v in rec.items()))
+            check(all(np.isfinite(v) for v in rec.values()), f"not finite: {rec}")
+        ckpt = CheckpointManager(models / "smoke/ckpt_ppg2mel")
+        best = CheckpointManager(models / "smoke/ckpt_ppg2mel_best")
+        check(ckpt.steps() == [2, 4, PPG_STEPS + 1] and best.steps()[0] == 2
+              and set(best.steps()) <= {2, 4}, f"checkpoints {ckpt.steps()}, best {best.steps()}")
+        _, state = ckpt.restore_latest(map_location=dev)
+        for name, t in model.state_dict().items():
+            check(torch.equal(state["model"][name], t), f"restored {name} differs")
+        attn = np.load(models / "smoke/logs_ppg2mel/dev_attention_0000002.npy")
+        print(f"  {sum(p.numel() for p in model.parameters())} parameters; {wall:.2f} s wall; "
+              f"checkpoints {ckpt.steps()}, best {best.steps()}; dev attention {attn.shape}")
+
+    with Phase("ppg2mel training: the trainer's step, by part (synchronised at each mark)"):
+        ds = ppg_train.OneshotVcDataset(vc_dir, "train")
+        host = ppg_train.collate_vc([ds[i] for i in range(PPG_BATCH)], cfg.frames_per_step, 4)
+        batch = to_device(host, dev)
+        opt, sched = ppg_train.make_optimizer(model, 5e-4)
+        step = ppg_train.make_vc_step(model, opt, sched, "bf16")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step(batch, gen)
+        torch.cuda.reset_peak_memory_stats()
+        walls = _timed_steps(lambda: step(batch, gen))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        marks = []
+
+        def mark(event):
+            def hook(*_, **__):
+                torch.cuda.synchronize()
+                marks.append((event, time.perf_counter()))
+            return hook
+
+        handles = [model.reduce_proj.register_forward_hook(mark("encode ends")),
+                   model.postnet.register_forward_pre_hook(mark("decoder loop ends")),
+                   model.postnet.register_forward_hook(mark("postnet ends")),
+                   opt.register_step_pre_hook(mark("backward and clip end, AdamW begins")),
+                   opt.register_step_post_hook(mark("AdamW ends"))]
+        mark("step begins")()
+        step(batch, gen)
+        mark("step ends")()
+        for h in handles:
+            h.remove()
+        for (a, t_a), (b, t_b) in zip(marks, marks[1:]):
+            print(f"  {a} -> {b}: {(t_b - t_a) * 1e3:.1f} ms")
+        loop = dict(marks)["decoder loop ends"] - dict(marks)["encode ends"]
+        total = marks[-1][1] - marks[0][1]
+        print(f"  {host['mels'].shape[1] // cfg.frames_per_step} decoder steps; the loop's "
+              f"forward {100 * loop / total:.0f}% of the marked step; step without marks "
+              f"{walls} ms ({tf32_state()}); peak memory {peak:.2f} GiB")
+        print("  one step: " + device_split(lambda: step(batch, gen)))
+
+    with Phase("ppg2mel training: one f32 training step on the card against the CPU"):
+        host = ppg_train.collate_vc([ds[0], ds[len(ds) - 1]], cfg.frames_per_step, 4)
+        b, t = host["mels"].shape[:2]
+        rng = np.random.RandomState(4)
+
+        def keep(*shape):
+            return torch.from_numpy(rng.rand(*shape) >= 0.5)
+        masks = {"prenet": [keep(b, d) for d in cfg.prenet_dims],
+                 "attention": keep(b, cfg.num_mixtures),
+                 "postnet": [keep(b, t, 512) for _ in range(4)] + [keep(b, t, cfg.num_mels)]}
+        results = {}
+        for name, d in (("cpu", "cpu"), ("card", dev)):
+            m = MelDecoderMOLv2(cfg).to(d).train()
+            m.load_state_dict(model.state_dict())
+            bt = to_device(host, d)
+            mk = {k: [x.to(d) for x in v] if isinstance(v, list) else v.to(d)
+                  for k, v in masks.items()}
+            with full_f32() if d != "cpu" else nullcontext():
+                out = m(*(bt[k] for k in ("ppgs", "lengths", "mels", "lengths", "lf0s",
+                                          "embeds")), masks=mk)
+                loss = ppg_train.vc_loss(out, bt)[0]
+                loss.backward()
+            results[name] = (loss.item(), _grads(m))
+        (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results["card"]
+        loss_err, grad_err = abs(l_card / l_cpu - 1), _rel_l2(g_card, g_cpu)
+        print(f"  batch 2 x {t} frames ({t // cfg.frames_per_step} decoder steps), dropout masks "
+              f"handed in, TF32 off: loss {l_card:.6f} vs {l_cpu:.6f}, relative error "
+              f"{loss_err:.3g} (bound 1e-5); gradients relative L2 {grad_err:.3g} (bound 1e-3)")
+        check(loss_err <= 1e-5, f"the f32 ppg2mel loss on the card differs by {loss_err}")
+        check(grad_err <= 1e-3, f"the f32 ppg2mel gradients differ by {grad_err}")
 
 
 # ---------------------------------------------------------------------------
@@ -1921,6 +2231,10 @@ def main() -> int:
         phase_gan_train(dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         k1_train_err = phase_wavernn_train(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_encoder_train(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_ppg2mel_train(dev, Path(tmp))
     kernels = phase_k1(dev, pipe, captured, tts_launches, k1_train_err)
     kernels.append(phase_k2(dev, train_inputs, train_launches))
     print(f"== total: {time.perf_counter() - t_start:.2f} s")

@@ -128,7 +128,10 @@ class FusedLSTMLayer(nn.Module):
     ``models/encoder/model.py:FusedLSTMLayer``: the input projection for all
     steps is one matmul and only the recurrence runs per step, which is what
     the fused LSTM call does. Parameters ``weight_ih_l0``, ``weight_hh_l0``,
-    ``bias_hh_l0``; the input biases are the zero buffer ``bias_ih_l0``."""
+    ``bias_hh_l0``; the input biases are the zero buffer ``bias_ih_l0``.
+    ``remat``: the backward recomputes the layer instead of keeping its
+    activations (``torch.utils.checkpoint``; the weights are handed in, so a
+    recompute sees the ones the forward saw, cast or not)."""
 
     def __init__(self, in_dims: int, hidden: int):
         super().__init__()
@@ -137,11 +140,22 @@ class FusedLSTMLayer(nn.Module):
         self.bias_hh_l0 = lstm.bias_hh_l0
         self.register_buffer("bias_ih_l0", torch.zeros(4 * hidden), persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w_ih, w_hh, b_hh = promote(x, self.weight_ih_l0, self.weight_hh_l0, self.bias_hh_l0)
-        h0 = x.new_zeros(1, x.shape[0], b_hh.shape[0] // 4)
-        weights = [w_ih, w_hh, self.bias_ih_l0.to(x.dtype), b_hh]
-        return torch.lstm(x, (h0, h0), weights, True, 1, 0.0, self.training, False, True)[0]
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        args = (x, self.weight_ih_l0, self.weight_hh_l0, self.bias_ih_l0, self.bias_hh_l0,
+                self.training)
+        if remat:
+            return checkpoint(lstm_sequence, *args, use_reentrant=False)
+        return lstm_sequence(*args)
+
+
+def lstm_sequence(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
+                  b_hh: torch.Tensor, training: bool = False) -> torch.Tensor:
+    """A one-layer LSTM over (B, T, D) from a zero state through
+    ``torch.lstm``, in the promoted dtype of the input and the weights."""
+    x, w_ih, w_hh, b_hh = promote(x, w_ih, w_hh, b_hh)
+    h0 = x.new_zeros(1, x.shape[0], b_hh.shape[0] // 4)
+    weights = [w_ih, w_hh, b_ih.to(x.dtype), b_hh]
+    return torch.lstm(x, (h0, h0), weights, True, 1, 0.0, training, False, True)[0]
 
 
 class LSTMCell(nn.Module):
@@ -165,13 +179,16 @@ class LSTMCell(nn.Module):
         return c, h
 
 
-def dropout(x: torch.Tensor, p: float, generator=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator=None,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dropout drawn from an explicit ``torch.Generator`` (the port's stand-in
-    for a ``jax.random`` key); flax semantics: keep with 1-p and scale by
-    1/(1-p). Active whenever a generator is passed."""
-    if generator is None or p == 0.0:
+    for a ``jax.random`` key), or with the keep mask ``keep`` handed in;
+    flax semantics: keep with 1-p and scale by 1/(1-p). Active whenever a
+    generator or a mask is passed."""
+    if p == 0.0 or (generator is None and keep is None):
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -182,8 +199,9 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        return dropout(x, self.p, generator)
+    def forward(self, x: torch.Tensor, generator=None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return dropout(x, self.p, generator, keep)
 
 
 # ---------------------------------------------------------------------------

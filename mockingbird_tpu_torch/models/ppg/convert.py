@@ -1,14 +1,14 @@
 """One-shot voice conversion: source wavs + one reference wav → wavs.
 
-Port of ``mockingbird_tpu/models/ppg/convert.py`` (without
-``preprocess_vc_dataset``, which feeds only the ppg2mel trainer): PPG
-extraction → lf0 conversion to the reference's statistics (host numpy) →
-ppg2mel AR decode → postnet → vocoder. The decode loop runs in Python with
+Port of ``mockingbird_tpu/models/ppg/convert.py``: PPG extraction → lf0
+conversion to the reference's statistics (host numpy) → ppg2mel AR decode → postnet → vocoder. The decode loop runs in Python with
 its state on the device and reads the stop flags back once per step, as
 JAX's while-loop tests them once per step; it keeps JAX's semantics (per-row
 stop frames, the loop ends when every row has stopped, the buffer stays zero
 after that step) and its buckets (batch padded to a power of two, memory to
 a multiple of 64 groups), which change the numbers and not only the speed.
+
+``preprocess_vc_dataset`` writes the ppg2mel trainer's corpus.
 """
 from __future__ import annotations
 
@@ -21,8 +21,8 @@ import torch
 
 from ... import resolve_device, seeded
 from ...config import Config, encoder_audio_config, sv2tts_audio_config
-from ...dsp import inv_mel_spectrogram, load_wav, preprocess_wav, save_wav
-from ...dsp.f0 import compute_f0, compute_mean_std, f02lf0, get_converted_lf0uv
+from ...dsp import inv_mel_spectrogram, load_wav, melspectrogram, preprocess_wav, save_wav
+from ...dsp.f0 import compute_f0, compute_mean_std, f02lf0, get_cont_lf0, get_converted_lf0uv
 from ...weights import load_flax, load_npz
 from ..encoder.inference import SpeakerEncoderInference
 from .extractor import PPGExtractor
@@ -200,3 +200,48 @@ class VoiceConverter:
             for p, out in zip(chunk, outs):
                 save_wav(out, out_dir / f"vc_{Path(p).stem}.wav", 16000)
         print(f"mean RTF: {np.mean(rtfs):.3f}")
+
+
+def preprocess_vc_dataset(wav_dir: Path, out_dir: Path,
+                          extractor: Optional[PPGExtractor] = None,
+                          encoder: Optional[SpeakerEncoderInference] = None,
+                          audio_cfg=None, device: Union[str, torch.device] = "cuda") -> None:
+    """Every wav under ``wav_dir`` (16 kHz, at least 0.1 s) → ``bnf/``
+    (PPGs), ``f0/`` ((T, 2) continuous lf0 and uv), ``embed/`` (the GE2E
+    d-vector), ``mel/`` (the SV2TTS mel; JAX's ``melspectrogram_bucketed``
+    equals ``melspectrogram`` and buckets only to bound XLA compiles), one
+    ``<fid>.npy`` each, and the fid lists: ids ending in 6 or 7 go to dev,
+    8 or 9 to eval, the rest to train. ``extractor`` and ``encoder``
+    default to seeded models on ``device``."""
+    dev = resolve_device(device)
+    wav_dir, out_dir = Path(wav_dir), Path(out_dir)
+    extractor = extractor or PPGExtractor(verbose=False, device=dev)
+    encoder = encoder or SpeakerEncoderInference(device=dev)
+    audio_cfg = audio_cfg or sv2tts_audio_config()
+    ecfg = encoder_audio_config()
+    for sub in ("bnf", "f0", "embed", "mel"):
+        (out_dir / sub).mkdir(parents=True, exist_ok=True)
+
+    fids = []
+    for wav_path in sorted(wav_dir.glob("**/*.wav")):
+        fid = wav_path.stem
+        wav, _ = load_wav(wav_path, target_sr=16000)
+        if len(wav) < 1600:
+            continue
+        uv, cont_lf0 = get_cont_lf0(compute_f0(wav))
+        arrays = {"bnf": extractor.extract_from_wav(wav),
+                  "f0": np.stack([cont_lf0, uv], axis=1).astype(np.float32),
+                  "embed": encoder.embed_utterance(preprocess_wav(wav, ecfg)),
+                  "mel": melspectrogram(torch.from_numpy(np.asarray(wav, np.float32)).to(dev),
+                                        audio_cfg).cpu().numpy()}
+        for sub, a in arrays.items():
+            np.save(out_dir / sub / f"{fid}.npy", a)
+        fids.append(fid)
+
+    splits = {"train": [], "dev": [], "eval": []}
+    for fid in fids:
+        splits["dev" if fid[-1] in "67" else "eval" if fid[-1] in "89" else "train"].append(fid)
+    for name, lst in splits.items():
+        (out_dir / f"{name}_fidlist.txt").write_text("\n".join(lst) + "\n")
+    print(f"VC preprocess: {len(fids)} utterances ({len(splits['train'])} train / "
+          f"{len(splits['dev'])} dev / {len(splits['eval'])} eval)")

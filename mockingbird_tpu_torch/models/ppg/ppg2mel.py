@@ -8,15 +8,21 @@ frames per step with stop tokens; a 5-layer conv Postnet. Module I/O is
 time-major (B, T, C) like the JAX package.
 
 Two reference quirks are kept: the decoder prenet's dropout stays on at
-inference (``prenet_always_dropout``, drawn from an explicit
-``torch.Generator``; without one no noise is drawn), and the MOL attention's
-CDF is ``1/(1+sigmoid((mu-j)/sigma))``. The teacher-forced ``forward`` runs
-in eval mode (BatchNorm running statistics, no attention or postnet
-dropout); training waits for the trainer slice.
+inference (``prenet_always_dropout``), and the MOL attention's CDF is
+``1/(1+sigmoid((mu-j)/sigma))``.
+
+``model.train()`` is the JAX package's ``train=True``: dropout 0.5 on the
+attention's mixture logits and after every postnet layer, and the postnet's
+BatchNorms in flax's batch-statistics mode (``layers.FlaxBatchNorm``: biased
+variance, running statistics at momentum 0.9). Every dropout draws from an
+explicit ``torch.Generator``, and none draws without one; the teacher-forced
+forward can instead take the keep masks handed in (``masks``), one per
+dropout site and the same at every decoder step, as a ``jax.random`` draw
+traced once inside JAX's ``nn.scan`` is.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...config import Config
-from ..layers import BatchNorm, Conv1d, Dense, Dropout, LSTMCell
+from ..layers import Conv1d, Dense, Dropout, FlaxBatchNorm, LSTMCell, dropout, promote
 from ..vits.modules import sequence_mask
 
 
@@ -58,9 +64,11 @@ class DecoderPrenet(nn.Module):
             self.add_module(f"fc{i}", Dense(a, s, bias=False))
         self.drop = Dropout(0.5 if always_dropout else 0.0)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                keeps: Optional[list] = None):
         for i in range(self.n):
-            x = self.drop(torch.relu(getattr(self, f"fc{i}")(x)), generator)
+            x = self.drop(torch.relu(getattr(self, f"fc{i}")(x)), generator,
+                          None if keeps is None else keeps[i])
         return x
 
 
@@ -76,7 +84,8 @@ def delta_bias(m: int, r: float) -> np.ndarray:
 
 class MOLAttention(nn.Module):
     """Discretized mixture-of-logistics location-relative attention.
-    Stateless: the caller carries ``mu_prev``."""
+    Stateless: the caller carries ``mu_prev``. In training mode its mixture
+    logits take dropout 0.5."""
 
     def __init__(self, query_dim: int, m: int = 5, r: float = 0.5):
         super().__init__()
@@ -86,16 +95,18 @@ class MOLAttention(nn.Module):
         with torch.no_grad():
             self.query_fc2.bias.copy_(torch.from_numpy(delta_bias(m, r)))
 
-    def forward(self, query, memory, mu_prev, mask=None):
+    def forward(self, query, memory, mu_prev, mask=None, generator=None, keep=None):
         m = self.m
         params = self.query_fc2(torch.relu(self.query_fc1(query)))
         w_hat, sigma_hat, delta_hat = params[:, :m], params[:, m : 2 * m], params[:, 2 * m :]
+        if self.training:
+            w_hat = dropout(w_hat, 0.5, generator, keep)
         eps = 1e-5
         w = torch.softmax(w_hat, dim=-1) + eps
         sigma = F.softplus(sigma_hat) + eps
         mu_cur = mu_prev + F.softplus(delta_hat)
         j = torch.arange(memory.shape[1] + 1, device=memory.device,
-                         dtype=memory.dtype)[None, None, :] + 0.5       # (1, 1, T+1)
+                         dtype=mu_cur.dtype)[None, None, :] + 0.5       # (1, 1, T+1)
         # the reference's CDF, kept as it is: 1/(1+sigmoid((mu-j)/sigma))
         phi = w[..., None] * (1.0 / (1.0 + torch.sigmoid(
             (mu_cur[..., None] - j) / sigma[..., None])))
@@ -104,7 +115,7 @@ class MOLAttention(nn.Module):
         alpha = torch.where(alpha == 0, torch.full_like(alpha, eps), alpha)
         if mask is not None:
             alpha = alpha * mask
-        context = torch.einsum("bt,btd->bd", alpha, memory)
+        context = torch.einsum("bt,btd->bd", *promote(alpha, memory))
         return context, alpha, mu_cur
 
 
@@ -132,12 +143,14 @@ class MolDecoderCell(nn.Module):
         self.stop_layer = Dense(out_in, 1)
 
     def forward(self, memory, mem_mask, carry: Carry, prev_frame,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, masks: Optional[Dict] = None):
         attn_state, dec_states, context, mu_prev = carry
-        pre = self.prenet(prev_frame, generator)
-        attn_state = self.attention_rnn(attn_state, torch.cat([pre, context], dim=-1))
+        masks = masks or {}
+        pre = self.prenet(prev_frame, generator, masks.get("prenet"))
+        attn_state = self.attention_rnn(attn_state, torch.cat(promote(pre, context), dim=-1))
         attn_h = attn_state[1]
-        context, alpha, mu_prev = self.attention_layer(attn_h, memory, mu_prev, mem_mask)
+        context, alpha, mu_prev = self.attention_layer(attn_h, memory, mu_prev, mem_mask,
+                                                       generator, masks.get("attention"))
         x = torch.cat([attn_h, context], dim=-1)
         new_dec = []
         for i, st in enumerate(dec_states):
@@ -163,7 +176,8 @@ class MolDecoderCell(nn.Module):
 
 class Postnet(nn.Module):
     """4 × (conv 512, k5 SAME + BatchNorm + tanh), then conv num_mels k5 +
-    BatchNorm; eval mode, no dropout."""
+    BatchNorm; in training mode each layer followed by dropout 0.5. The
+    BatchNorms are flax's, over the channel axis of (B, T, C)."""
 
     def __init__(self, num_mels: int = 80, hidden: int = 512, layers: int = 5,
                  kernel: int = 5):
@@ -171,14 +185,23 @@ class Postnet(nn.Module):
         self.n = layers - 1
         for i in range(self.n):
             self.add_module(f"conv_{i}", Conv1d(num_mels if i == 0 else hidden, hidden, kernel))
-            self.add_module(f"bn_{i}", BatchNorm(hidden))
+            self.add_module(f"bn_{i}", FlaxBatchNorm(hidden))
         self.conv_out = Conv1d(hidden, num_mels, kernel)
-        self.bn_out = BatchNorm(num_mels)
+        self.bn_out = FlaxBatchNorm(num_mels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                keeps: Optional[list] = None) -> torch.Tensor:
+        def drop(y, i):
+            if not self.training:
+                return y
+            return dropout(y, 0.5, generator, None if keeps is None else keeps[i])
+
+        def bn(module, y):
+            return module(y.transpose(1, 2)).transpose(1, 2)
+
         for i in range(self.n):
-            x = torch.tanh(getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(x)))
-        return self.bn_out(self.conv_out(x))
+            x = drop(torch.tanh(bn(getattr(self, f"bn_{i}"), getattr(self, f"conv_{i}")(x))), i)
+        return drop(bn(self.bn_out, self.conv_out(x)), self.n)
 
 
 def _instance_norm(x: torch.Tensor) -> torch.Tensor:
@@ -230,10 +253,13 @@ class MelDecoderMOLv2(nn.Module):
         return self.reduce_proj(torch.cat([x, spk], dim=-1))
 
     def forward(self, bnf, feature_lengths, speech, speech_lengths, logf0_uv, spembs,
-                generator: Optional[torch.Generator] = None):
-        """Teacher-forced forward, eval mode. speech (B, T_mel, M) → (mel,
-        mel after the postnet, both masked to ``speech_lengths``; stop logits
-        repeated r times; alignments (B, steps, T_mem))."""
+                generator: Optional[torch.Generator] = None, masks: Optional[Dict] = None):
+        """Teacher-forced forward. speech (B, T_mel, M) → (mel, mel after
+        the postnet, both masked to ``speech_lengths``; stop logits repeated
+        r times; alignments (B, steps, T_mem)). The decoder is a Python loop
+        over ``decode_step``, every draw from ``generator``. ``masks``
+        hands in the keep masks: ``{"prenet": [(B, d_i)], "attention":
+        (B, M), "postnet": [(B, T_mel, C_i)]}``, each used at every step."""
         c = self.cfg
         memory = self.encode_inputs(bnf, logf0_uv, spembs)
         down = int(np.prod(c.encoder_downsample_rates))
@@ -248,21 +274,22 @@ class MelDecoderMOLv2(nn.Module):
         mels, stops, aligns = [], [], []
         for s in range(steps):
             carry, (mel, stop, alpha) = self.decoder(memory, mem_mask, carry, dec_in[:, s],
-                                                     generator)
+                                                     generator, masks)
             mels.append(mel)
             stops.append(stop)
             aligns.append(alpha)
         mel_out = torch.stack(mels, dim=1).reshape(b, steps * r, m)
         stop_out = torch.stack(stops, dim=1).repeat_interleave(r, dim=1)
-        mel_post = self.postnet_apply(mel_out)
+        mel_post = self.postnet_apply(mel_out, generator, (masks or {}).get("postnet"))
         out_mask = sequence_mask(speech_lengths, t_mel)[..., None]
         return mel_out * out_mask, mel_post * out_mask, stop_out, torch.stack(aligns, dim=1)
 
     def decode_step(self, memory, mem_mask, carry, prev_frame, generator=None):
         return self.decoder(memory, mem_mask, carry, prev_frame, generator)
 
-    def postnet_apply(self, mel: torch.Tensor) -> torch.Tensor:
-        return mel + self.postnet(mel)
+    def postnet_apply(self, mel: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      keeps: Optional[list] = None) -> torch.Tensor:
+        return mel + self.postnet(mel, generator, keeps)
 
     def init_carry(self, batch: int, device) -> Carry:
         return self.decoder.init_carry(batch, self.cfg.encoder_dim, device)

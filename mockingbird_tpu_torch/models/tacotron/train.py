@@ -42,7 +42,9 @@ from ...config import Config, sv2tts_audio_config
 from ...dsp import inv_mel_spectrogram, save_wav
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
+from ...train.optim import clip_by_global_norm
 from ...train.precision import Policy
+from ...train.step import step_generator, to_device
 from .dataset import DataLoader, SynthesizerDataset, collate_synthesizer
 from .model import Tacotron, tacotron_config
 
@@ -91,27 +93,9 @@ def finetune_mask(model: torch.nn.Module, layers: Sequence[str]) -> dict:
             for name, _ in model.named_parameters()}
 
 
-def clip_by_global_norm(grads, max_norm: float = 1.0) -> torch.Tensor:
-    """optax's ``clip_by_global_norm``: scale every gradient by
-    max_norm / norm when the global norm is at least ``max_norm``.
-    Returns the norm (a tensor; no host sync)."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    for g in grads:
-        g.mul_(scale)
-    return norm
-
-
 def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
     """``optax.adam(lr, b1=0.9, b2=0.999)``."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
-
-
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of step ``step``, keyed by (seed, step) like
-    ``fold_in(PRNGKey(seed), step)``."""
-    key = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(key)
 
 
 def loss_of(model, batch: dict, r: int, policy: Policy, generator=None, zo_masks=None,
@@ -160,12 +144,6 @@ def make_train_step(model: Tacotron, opt: torch.optim.Optimizer, r: int,
                 out[2].detach(), out[1].detach())
 
     return step
-
-
-def to_device(batch: dict, device) -> dict:
-    """numpy batch → tensors on ``device`` (int32 → int64 indices)."""
-    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v).to(device)
-            for k, v in batch.items()}
 
 
 def _dataset(syn_dir: Path) -> SynthesizerDataset:

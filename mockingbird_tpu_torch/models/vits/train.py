@@ -30,6 +30,7 @@ from ...text import text_to_sequence
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.precision import Policy
+from ...train.step import to_device
 from ..vocoder.gan_losses import discriminator_loss, feature_loss, generator_loss, kl_loss
 from ..vocoder.hifigan import DiscriminatorP, DiscriminatorS, collect, real_and_generated
 from .model import init_vits, vits_config
@@ -185,12 +186,6 @@ class BucketBatcher:
             spec_l[i] = spec.shape[0]
         return dict(texts=texts, specs=specs, wavs=wavs, sids=sids, emos=emos,
                     text_lengths=text_l, spec_lengths=spec_l)
-
-
-def to_device(batch: dict, device) -> dict:
-    """numpy batch → tensors on ``device`` (int32 → int64 indices)."""
-    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v).to(device)
-            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

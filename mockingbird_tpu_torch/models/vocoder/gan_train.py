@@ -34,8 +34,8 @@ from ...dsp import spec_to_mel_vits, spectrogram_vits
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.precision import Policy
+from ...train.step import to_device
 from ..tacotron.dataset import DataLoader
-from ..tacotron.train import to_device
 from .dataset import MelDataset, collate_gan, get_dataset_filelist
 from .fregan import FreGanDiscriminators, FreGanGenerator, fregan_config
 from .gan_losses import (discriminator_loss, feature_loss, generator_loss,

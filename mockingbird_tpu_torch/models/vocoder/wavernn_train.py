@@ -33,8 +33,8 @@ from ...dsp import (decode_mu_law, encode_mu_law, float_2_label, label_2_float, 
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.precision import Policy
+from ...train.step import to_device
 from ..tacotron.dataset import DataLoader
-from ..tacotron.train import to_device
 from .distribution import discretized_mix_logistic_loss
 from .wavernn import WaveRNN, WaveRnnVocoder, wavernn_config
 

@@ -548,3 +548,74 @@ def test_wavernn_training_forward_on_card_matches_cpu(card, width):
     gpu.remat = True
     again = gpu(x.to(card), mels.to(card)).detach()
     torch.testing.assert_close(again, got, atol=1e-6 * scale, rtol=0)
+
+
+def _rel_l2(got, want):
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(got, want))
+    return (num / sum(float((b ** 2).sum()) for b in want)) ** 0.5
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_ge2e_f32_step_on_card_matches_cpu(card, remat):
+    """The GE2E loss at full width (3 × LSTM 256), batch 4 speakers × 3
+    partials × 160 frames, seeded: on the card (TF32 off) the loss within
+    1e-5 relative of the CPU's, the EER within one rank (1/12), the
+    gradients within 1e-3 relative L2; with ``remat`` the same."""
+    from mockingbird_tpu_torch.models.encoder import model as enc
+    s, u = 4, 3
+    x = torch.from_numpy(np.abs(np.random.RandomState(0).randn(s * u, 160, 40))
+                         .astype(np.float32))
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", card)):
+        p = enc.init_params(0, remat=remat and name == "card").to(dev).train()
+        embeds = p["model"](x.to(dev)).reshape(s, u, -1)
+        loss, sim = enc.ge2e_loss(embeds, p["similarity"]["weight"], p["similarity"]["bias"])
+        loss.backward()
+        out[name] = (loss.item(), float(enc.equal_error_rate(sim, s, u)),
+                     [q.grad.detach().cpu().double() for q in p.parameters()])
+    (lc, ec, gc), (lg, eg, gg) = out["cpu"], out["card"]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    assert abs(eg - ec) <= 1 / (s * u)
+    assert _rel_l2(gg, gc) <= 1e-3
+
+
+def test_ppg2mel_f32_training_step_on_card_matches_cpu(card):
+    """The ppg2mel training forward at full width (``ppg2mel_config()``),
+    batch 2 × 64 frames (32 decoder steps), seeded, every dropout mask
+    handed in: on the card (TF32 off) the loss within 1e-5 relative of the
+    CPU's, the gradients within 1e-3 relative L2, the moved BatchNorm
+    statistics within 1e-5."""
+    import importlib
+    from mockingbird_tpu_torch.models.ppg import MelDecoderMOLv2, ppg2mel_config
+    ptrain = importlib.import_module("mockingbird_tpu_torch.models.ppg.train")
+    cfg = ppg2mel_config()
+    rng = np.random.RandomState(0)
+    items = [(rng.randn(n, 144).astype(np.float32),
+              np.stack([rng.randn(n), rng.rand(n) > 0.3], -1).astype(np.float32),
+              np.clip(rng.randn(n, 80) * 2, -4, 4).astype(np.float32),
+              rng.randn(256).astype(np.float32)) for n in (64, 41)]
+    host = ptrain.collate_vc(items)
+    b, t = host["mels"].shape[:2]
+
+    def keep(*shape):
+        return torch.from_numpy(rng.rand(*shape) >= 0.5)
+    masks = {"prenet": [keep(b, d) for d in cfg.prenet_dims], "attention": keep(b, 5),
+             "postnet": [keep(b, t, 512) for _ in range(4)] + [keep(b, t, 80)]}
+    torch.manual_seed(0)
+    cpu = MelDecoderMOLv2(cfg).train()
+    gpu = MelDecoderMOLv2(cfg).to(card).train()
+    gpu.load_state_dict(cpu.state_dict())
+    out = {}
+    for name, m, dev in (("cpu", cpu, "cpu"), ("card", gpu, card)):
+        bt = ptrain.to_device(host, dev)
+        mk = {k: [x.to(dev) for x in v] if isinstance(v, list) else v.to(dev)
+              for k, v in masks.items()}
+        o = m(*(bt[k] for k in ("ppgs", "lengths", "mels", "lengths", "lf0s", "embeds")),
+              masks=mk)
+        loss = ptrain.vc_loss(o, bt)[0]
+        loss.backward()
+        out[name] = (loss.item(), [q.grad.detach().cpu().double() for q in m.parameters()])
+    assert out["card"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    assert _rel_l2(out["card"][1], out["cpu"][1]) <= 1e-3
+    for (name, a), b in zip(gpu.named_buffers(), cpu.buffers()):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0, msg=name)

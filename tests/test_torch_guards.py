@@ -137,13 +137,18 @@ def test_weight_load_is_strict():
     assert len(flatten_tree(tree)) == 38
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """Also the GE2E and ppg2mel trainers, which raise before they read any
+    data."""
+    import importlib
     from mockingbird_tpu_torch.models.encoder import SpeakerEncoderInference
     from mockingbird_tpu_torch.models.tacotron import Synthesizer
     from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder, load_vocoder
     from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
+    trainers = tuple(importlib.import_module(f"mockingbird_tpu_torch.models.{m}.train").train
+                     for m in ("encoder", "ppg"))
     entries = (SpeakerEncoderInference, Synthesizer, WaveRnnVocoder, load_vocoder,
-               VoiceCloningPipeline)
+               VoiceCloningPipeline) + trainers
     for fn in entries:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -151,8 +156,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         mockingbird_tpu_torch.resolve_device()
     for fn in entries:
         with pytest.raises(RuntimeError, match="device='cpu'"):
-            fn("x/vocoder_wavernn.npz") if fn is load_vocoder else fn()
+            if fn is load_vocoder:
+                fn("x/vocoder_wavernn.npz")
+            elif fn in trainers:
+                fn("run", tmp_path / "missing", tmp_path / "models")
+            else:
+                fn()
     assert mockingbird_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
 
 
 def test_sampler_refuses_other_devices():
