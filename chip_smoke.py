@@ -88,7 +88,7 @@ Phases, each printing its elapsed seconds:
      counted: at least one per sample); the last checkpoint's sampler
      weights are the trained model's, not the first's; K1 held against its
      plain version on the last sampler call of this path (its own folds,
-     greedy and sampled, f32 and bf16 weights, bounds as in 14) and timed;
+     greedy and sampled, f32 and bf16 weights, bounds as in 17) and timed;
      one MOL step; the
      ``remat`` step against the plain one in f32 (TF32 off); the RAW step
      timed warm with its peak memory;
@@ -111,7 +111,32 @@ Phases, each printing its elapsed seconds:
      hooks (the decoder loop's share), with its peak memory and busy share;
      one f32 training step (batch 2, dropout masks handed in, TF32 off) on
      the card against the CPU. No kernel on this path;
-  14. each kernel held against its plain PyTorch version on the card, with
+  14. the wav2vec2 emotion extractor at ``wav2emo_config()`` (12 x 1024
+     pre-LN, 7 conv layers, about 164 M parameters), seeded weights, f32:
+     ``extract_batch`` of 8 wavs of 2-6 s timed warm (s per batch, audio s
+     per wall s, peak memory), one f32 hold of the card (TF32 off) against
+     the CPU on 2 x 2 s by relative L2, then ``create_emotion_embeddings``
+     over a synthetic 16-utterance synthesizer root, one file read back by
+     the port's ``VitsDataset``. No kernel on this path;
+  15. the server: the port's ``serve(port=0, block=False)`` on the card over
+     a ``WebToolbox`` whose pipeline is seeded at the committed Tacotron and
+     HiFi-GAN widths, with a small datasets root. ``/api/health``,
+     ``/api/embed``, ``/api/synthesize_mel`` (200 steps), ``/api/vocode``
+     with HiFi-GAN, WaveRNN (K1, launches counted) and Griffin-Lim; one
+     ``/api/synthesize`` held against a direct ``tts_batch`` of the same
+     text and embedding; 8 concurrent default ``/api/synthesize`` requests
+     (the coalescer's dispatch count, each request's wall time, requests per
+     second), every response held against a direct ``tts_batch`` of its own
+     dispatch; ``/api/stream_tts`` (first chunk's latency, chunk count);
+     ``/api/convert`` (PPG-VC); the peak memory. Every request has a
+     timeout; the server is shut down after, and its coalescer with it. K1's
+     call on the WaveRNN vocode is held against its plain version, greedy
+     and sampled, f32 and bf16, as on the trainer's path; its error feeds
+     K1's ``max_abs_err``;
+  16. the CLI: ``python -m mockingbird_tpu_torch.cli tts`` in a subprocess
+     with a timeout, seeded weights and the flagship's HiFi-GAN as an
+     ``.npz`` export: the wav's sample rate and the CLI's RTF;
+  17. each kernel held against its plain PyTorch version on the card, with
      the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
      (its fold-major layout) on the TTS path's own inputs, then timed at
      one utterance's folds and at 4 folds per SM, with the launch plan, the
@@ -119,7 +144,7 @@ Phases, each printing its elapsed seconds:
      (alignment search, exactly equal) on the training step's own inputs
      and on ragged, tied and band-less cases, timed per call with CUDA
      events, the kernel's own device time from a profiler trace beside it;
-  15. one ``kernels`` JSON line, then the contract line
+  18. one ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}`` last.
 
 Every path is timed under PyTorch's defaults, which is what a caller of the
@@ -133,13 +158,17 @@ needs a CUDA card; without one it exits non-zero before any phase.
 """
 from __future__ import annotations
 
+import gc
 import importlib
+import io
 import json
 import random
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
+import wave
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
@@ -154,6 +183,9 @@ from mockingbird_tpu_torch.models.tacotron.train import (loss_of, make_train_ste
                                                          run_gta_synthesis)
 from mockingbird_tpu_torch.models.tacotron.train import make_optimizer as taco_optimizer
 from mockingbird_tpu_torch.models.tacotron.train import train as taco_train
+from mockingbird_tpu_torch.models.tacotron import create_emotion_embeddings
+from mockingbird_tpu_torch.models.tacotron.emotion import EmotionExtractor
+from mockingbird_tpu_torch.models.wav2emo import wav2emo_config
 from mockingbird_tpu_torch.models.vits import VitsSynthesizer, train as vits_train
 from mockingbird_tpu_torch.models.vits import model as vits_model_module
 from mockingbird_tpu_torch.models.vits.model import vits_config
@@ -186,6 +218,9 @@ from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_pat
 from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, plan, resident_blocks,
                                                       wavernn_sample, wavernn_sample_plain)
 from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline, make_voice_converter
+from mockingbird_tpu_torch.serve import serve
+from mockingbird_tpu_torch.serve.http import _wav_bytes
+from mockingbird_tpu_torch.serve.toolbox import WebToolbox, read_audio
 from mockingbird_tpu_torch.text import text_to_sequence
 from mockingbird_tpu_torch.train.checkpoint import CheckpointManager
 from mockingbird_tpu_torch.train.optim import clip_by_global_norm
@@ -269,6 +304,22 @@ PPG_UTTS = 16
 PPG_SECONDS = (2.0, 5.0)
 PPG_BATCH = 8
 PPG_STEPS = 4
+# the emotion extractor: 8 wavs of 2-6 s per batch, warm batches timed; a
+# 16-utterance synthesizer root for create_emotion_embeddings
+EMO_SECONDS = tuple(2.0 + 4.0 * i / 7 for i in range(8))
+EMO_REPS = 3
+EMO_UTTS = 16
+# the server: concurrent default /api/synthesize requests, one text each,
+# and a /api/stream_tts text of three sentences of over 100 characters (the
+# stream packs sentences into chunks of at most 140)
+SERVE_CONCURRENT = 8
+SERVE_TEXTS = ("ni3 hao3", "zai4 jian4", "xie4 xie4 ni3", "hello world", "good morning",
+               "shi4 jie4 ni3 hao3", "this voice was cloned", "wo3 men5 zou3 ba5")
+SERVE_STREAM_TEXT = (
+    "this voice was cloned from a short reference recording and streamed back one sentence "
+    "at a time. the first chunk of audio should arrive long before the whole text has been "
+    "synthesized by the server! and the last sentence closes the stream, so that the client "
+    "hears every chunk in the order it was written?")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -413,14 +464,42 @@ def hold_labels(kernel: torch.Tensor, plain: torch.Tensor, gaps: torch.Tensor,
     return compared, full, worst, err
 
 
+def hold_k1_call(w_f32, w_bf16, mels, aux, seed, n_classes) -> float:
+    """K1 at one path's call against its plain version, greedy and sampled,
+    in f32 and in bf16, with the near-tie rule of ``hold_labels``; prints
+    each mode and returns K1's max |x_kernel - x_plain|, which must be 0."""
+    f, t, _ = mels.shape
+    k1_err = 0.0
+    with full_f32():
+        for label, w, greedy, bound in (("greedy f32", w_f32, True, GAP_F32),
+                                        ("greedy bf16", w_bf16, True, GAP_BF16),
+                                        ("sampled f32", w_f32, False, GAP_F32),
+                                        ("sampled bf16", w_bf16, False, GAP_BF16)):
+            p, gaps = wavernn_sample_plain(w, mels, aux, seed, n_classes, greedy=greedy,
+                                           return_gaps=True)
+            k = wavernn_sample(w, mels, aux, seed, n_classes, greedy=greedy)
+            compared, full, worst, e = hold_labels(k, p, gaps, bound, n_classes)
+            k1_err = max(k1_err, e)
+            print(f"  K1 {label}: {compared}/{f * t} steps equal before the first "
+                  f"difference, {full}/{f} folds equal throughout, largest gap at a first "
+                  f"difference {worst:.3g} (bound {bound})")
+    print(f"  max |x_kernel - x_plain| before each fold's first near-tie: {k1_err}")
+    check(k1_err == 0.0, "labels differ before a fold's first near-tie")
+    return k1_err
+
+
 def tv_distance(a: torch.Tensor, b: torch.Tensor, n_classes: int) -> float:
     ha = torch.bincount(a.flatten().long() * 64 // n_classes, minlength=64).double()
     hb = torch.bincount(b.flatten().long() * 64 // n_classes, minlength=64).double()
     return 0.5 * float((ha / ha.sum() - hb / hb.sum()).abs().sum())
 
 
-def check_config(name: str, got, path: Path) -> None:
-    for key, want in Config.from_json(path).items():
+def check_config(name: str, got, committed) -> None:
+    """Every key of the committed config (a path to its ``.json``, or the
+    config itself) has its value in ``got``."""
+    if not isinstance(committed, dict):
+        committed = Config.from_json(committed)
+    for key, want in committed.items():
         check(list(got[key]) == list(want) if isinstance(want, list) else got[key] == want,
               f"{name} {key}={got[key]}, committed config says {want}")
 
@@ -1647,22 +1726,7 @@ def phase_wavernn_train(dev, tmp: Path):
                       resident_blocks(dev, dtype))
             print(f"  plan ({dtype}, F={f}): grid {pl.grid} blocks of {pl.nu} units, "
                   f"{pl.fchunk} folds per stage, {pl.staged_bytes} B staged per step")
-        k1_err = 0.0
-        with full_f32():
-            for label, w, greedy, bound in (("greedy f32", w_f32, True, GAP_F32),
-                                            ("greedy bf16", w_bf16, True, GAP_BF16),
-                                            ("sampled f32", w_f32, False, GAP_F32),
-                                            ("sampled bf16", w_bf16, False, GAP_BF16)):
-                p, gaps = wavernn_sample_plain(w, mels, aux, seed, n_classes, greedy=greedy,
-                                               return_gaps=True)
-                k = wavernn_sample(w, mels, aux, seed, n_classes, greedy=greedy)
-                compared, full, worst, e = hold_labels(k, p, gaps, bound, n_classes)
-                k1_err = max(k1_err, e)
-                print(f"  K1 {label}: {compared}/{f * t} steps equal before the first "
-                      f"difference, {full}/{f} folds equal throughout, largest gap at a first "
-                      f"difference {worst:.3g} (bound {bound})")
-        print(f"  max |x_kernel - x_plain| before each fold's first near-tie: {k1_err}")
-        check(k1_err == 0.0, "labels differ before a fold's first near-tie")
+        k1_err = hold_k1_call(w_f32, w_bf16, mels, aux, seed, n_classes)
         k1_ms = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes), reps=3)
         k1_plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))
         print(f"  K1 at this path's call (bf16, sampled): {k1_ms:.3f} ms ({k1_ms / t * 1e3:.2f} "
@@ -1984,6 +2048,351 @@ def phase_ppg2mel_train(dev, tmp: Path):
 
 
 # ---------------------------------------------------------------------------
+# the emotion extractor, the server and the CLI
+# ---------------------------------------------------------------------------
+
+def _emo_wavs(seed: int, seconds) -> list:
+    rng = np.random.RandomState(seed)
+    return [_tone_wav(rng, s, rng.uniform(100, 260)) for s in seconds]
+
+
+def phase_emotion(dev, tmp: Path):
+    with Phase("emotion extractor: wav2emo_config() at full width, seeded, f32"):
+        ex = EmotionExtractor(seed=0, device=dev)
+        check(ex.available, "the seeded extractor is not available")
+        check_config("wav2emo", ex.cfg, wav2emo_config())
+        n_params = sum(p.numel() for p in ex.model.parameters())
+        print(f"  {ex.cfg.num_hidden_layers} x {ex.cfg.hidden_size} "
+              f"{'pre' if ex.cfg.do_stable_layer_norm else 'post'}-LN, "
+              f"{len(ex.cfg.conv_dim)} conv layers ({ex.cfg.feat_extract_norm} norm), "
+              f"{n_params} parameters in {next(ex.model.parameters()).dtype}")
+        wavs = _emo_wavs(0, EMO_SECONDS)
+        audio_s = sum(len(w) for w in wavs) / 16000
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.extract_batch(wavs)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        walls = []
+        for _ in range(EMO_REPS):
+            t0 = time.perf_counter()
+            emb, logits = ex.extract_batch(wavs)
+            walls.append(time.perf_counter() - t0)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        best = min(walls)
+        print(f"  extract_batch of {len(wavs)} wavs of {min(EMO_SECONDS)}-{max(EMO_SECONDS)} s "
+              f"({audio_s:.2f} s of audio, padded to {int(np.ceil(max(EMO_SECONDS)))} s): first "
+              f"call {first:.4f} s, warm {[round(w, 4) for w in walls]} s per batch")
+        print(f"  emotion audio s per wall s: {audio_s / best:.1f} (best warm batch)")
+        print(f"  emotion peak memory: {peak:.3f} GiB")
+        print(f"  launches on the emotion path: {launches} (the path needs no kernel)")
+        check(not any(launches.values()), f"a kernel launched on the emotion path: {launches}")
+        check(emb.shape == (len(wavs), ex.cfg.hidden_size) and logits.shape == (len(wavs), 3),
+              f"embedding shapes {emb.shape}, {logits.shape}")
+        check(bool(np.isfinite(emb).all() and np.isfinite(logits).all()), "non-finite output")
+        check(float(np.abs(emb).min(axis=1).max()) > 0 and float(np.abs(emb).max()) > 0,
+              "a zero embedding from seeded weights")
+
+    with Phase("emotion extractor on the card against the CPU (f32, TF32 off)"):
+        cpu = EmotionExtractor(seed=0, device="cpu")
+        pair = _emo_wavs(1, (2.0, 2.0))
+        with full_f32():
+            card_out = ex.extract_batch(pair)
+        cpu_out = cpu.extract_batch(pair)
+        errs = [float(np.linalg.norm(g - c) / np.linalg.norm(c))
+                for g, c in zip(card_out, cpu_out)]
+        print(f"  2 x 2 s: relative L2 embeddings {errs[0]:.3g}, logits {errs[1]:.3g} "
+              f"(bound 1e-4)")
+        check(max(errs) <= 1e-4, f"the f32 extractor on the card differs from the CPU: {errs}")
+        del cpu
+
+    with Phase("create_emotion_embeddings over a 16-utterance synthesizer root"):
+        root = tmp / "syn"
+        (root / "audio").mkdir(parents=True)
+        wavs = _emo_wavs(2, np.linspace(1.0, 3.0, EMO_UTTS))
+        rows = []
+        for i, w in enumerate(wavs):
+            np.save(root / "audio" / f"audio-spk{i % 4}_utt{i:02d}.npy", w)
+            rows.append(f"audio-spk{i % 4}_utt{i:02d}.npy|mel-spk{i % 4}_utt{i:02d}.npy|"
+                        f"embed-spk{i % 4}_utt{i:02d}.npy|{len(w)}|{len(w) // 256}|ni3 hao3")
+        (root / "train.txt").write_text("\n".join(rows) + "\n")
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        create_emotion_embeddings(root, seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        files = sorted((root / "emo").glob("emo-*.npy"))
+        print(f"  {len(files)} files in {wall:.3f} s (extractor build included); "
+              f"launches {launches}")
+        check(len(files) == EMO_UTTS, f"{len(files)} emotion files for {EMO_UTTS} utterances")
+        check(not any(launches.values()), f"a kernel launched on the emotion path: {launches}")
+        ds = VitsDataset(root, Config(vits_config()).merge(Config.from_json(VITS_JSON)))
+        got = ds[0][4]
+        want = ex.extract_batch(wavs[:8])[0][0]      # the first batch the preprocessor ran
+        err = float(np.abs(got - want).max())
+        print(f"  VitsDataset reads {ds.items[0][0]}'s vector back: max |file - extractor| "
+              f"{err:.3g} (bound 1e-5)")
+        check(got.shape == (ex.cfg.hidden_size,) and err <= 1e-5, "the emotion file differs")
+
+
+def _request(url: str, path: str, payload=None, kind: str = "json"):
+    """A GET (no payload), JSON or multipart POST request; a multipart
+    payload maps field names to (file name or None, str or bytes)."""
+    if payload is None:
+        return urllib.request.Request(url + path)
+    if kind == "json":
+        return urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                      headers={"Content-Type": "application/json"})
+    boundary = "smokeBOUNDARY"
+    parts = []
+    for name, (fname, data) in payload.items():
+        head = f'Content-Disposition: form-data; name="{name}"'
+        if fname:
+            head += f'; filename="{fname}"'
+        data = data.encode() if isinstance(data, str) else data
+        parts.append(f"--{boundary}\r\n{head}\r\n\r\n".encode() + data + b"\r\n")
+    return urllib.request.Request(
+        url + path, data=b"".join(parts) + f"--{boundary}--\r\n".encode(),
+        headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+
+
+def _http(url: str, path: str, payload=None, kind: str = "json", timeout: float = 300):
+    """(headers, body, wall s) of one request to the server; a status other
+    than 200 raises."""
+    req = _request(url, path, payload, kind)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+        status, headers = r.status, dict(r.headers)
+    wall = time.perf_counter() - t0
+    check(status == 200, f"{path}: status {status}")
+    if "json" in headers.get("Content-Type", ""):
+        body = json.loads(body)
+    return headers, body, wall
+
+
+def _wav_of(body: bytes):
+    with wave.open(io.BytesIO(body)) as w:
+        return w.getframerate(), np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def phase_serve(dev, tmp: Path):
+    root = tmp / "datasets"
+    ref_bytes = REF_WAV.read_bytes()
+    for i in range(2):
+        d = root / "LJSpeech-1.1" / "wavs"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"LJ001-000{i}.wav").write_bytes(ref_bytes)
+    save_wav(np.tile(load_wav(REF_WAV)[0], 4), tmp / "src.wav", 16000)
+    src_bytes = (tmp / "src.wav").read_bytes()
+    built = {}
+
+    def pipeline_factory():
+        voc = GanVocoder("hifigan", cfg=dict(Config.from_json(GAN_JSON), **GAN_CFG),
+                         verbose=False, seed=0, device=dev)
+        built["pipe"] = VoiceCloningPipeline(vocoder=voc, verbose=False, seed=0, device=dev)
+        return built["pipe"]
+
+    def vocoder_factory(name):
+        if name == "wavernn":
+            built["wavernn"] = WaveRnnVocoder(verbose=False, seed=0, device=dev)
+            return built["wavernn"]
+        if name == "hifigan":
+            return built["pipe"].vocoder
+        return GanVocoder(name, verbose=False, seed=0, device=dev)
+
+    tb = WebToolbox(datasets_root=root, seed=0, device=dev, pipeline_factory=pipeline_factory,
+                    vocoder_factory=vocoder_factory)
+    # the sampler's inputs on the WaveRNN vocode, for the hold below; the
+    # count stays the wrapper's
+    sampled = []
+
+    def sampling(weights, mels, aux, seed, n_classes=512, greedy=False):
+        sampled.append((weights, mels, aux, seed, n_classes, greedy))
+        return wavernn_sample(weights, mels, aux, seed, n_classes, greedy)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    srv = serve(port=0, block=False, toolbox=tb)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with Phase("server: the port's serve() on the card, seeded full-width pipeline"):
+            _, body, wall = _http(url, "/api/health")
+            check(body == {"status": "ok"}, f"health {body}")
+            _, res, wall = _http(url, "/api/embed", {"ref": ("ref.wav", ref_bytes),
+                                                     "name": (None, "ref")}, "multipart")
+            pipe = built["pipe"]
+            pipe.synthesizer.load()
+            check_config("Tacotron", pipe.synthesizer.cfg, TACOTRON_JSON)
+            check_config("HiFi-GAN", pipe.vocoder.cfg, GAN_JSON)
+            print(f"  /api/embed: {wall:.3f} s (the pipeline's build included), "
+                  f"{len(res['embed'])}-d")
+            check(len(res["embed"]) == 256, "embedding width")
+            _, res, wall = _http(url, "/api/synthesize_mel",
+                                 {"text": TEXTS[0], "utterance": "ref", "steps": STEPS})
+            print(f"  /api/synthesize_mel ({STEPS} steps): {wall:.3f} s, mel {res['mel_shape']}")
+            check(res["mel_shape"][0] == 80, f"mel shape {res['mel_shape']}")
+            for name in ("hifigan", "wavernn", "griffinlim"):
+                before = read_counts()["wavernn_sample"]
+                wavernn_module.wavernn_sample = sampling
+                try:
+                    hdrs, body, wall = _http(url, "/api/vocode", {"vocoder": name})
+                finally:
+                    wavernn_module.wavernn_sample = wavernn_sample
+                k1 = read_counts()["wavernn_sample"] - before
+                sr, pcm = _wav_of(body)
+                print(f"  /api/vocode {name}: {wall:.3f} s, {len(pcm)} samples at {sr} Hz, "
+                      f"X-RTF {hdrs['X-RTF']}, K1 launches {k1}")
+                check(sr == 16000 and len(pcm) > 0 and int(np.abs(pcm).max()) > 0,
+                      f"{name} vocoded an empty or silent wav")
+                check(k1 >= 1 if name == "wavernn" else k1 == 0,
+                      f"{name}: {k1} K1 launches")
+
+            text = TEXTS[0]
+            hdrs, body, wall = _http(url, "/api/synthesize", {"text": (None, text),
+                                                              "ref": ("r.wav", ref_bytes)},
+                                     "multipart")
+            check(hdrs.get("X-Coalesced") == "1", "the one-shot request was not coalesced")
+            direct = pipe.tts_batch([text], None,
+                                    embed=pipe.embed_reference(read_audio(ref_bytes, 16000)))[0]
+            _, want = _wav_of(_wav_bytes(direct.astype(np.float32) / 32767.0, 16000))
+            _, got = _wav_of(body)
+            diff = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+            print(f"  /api/synthesize: {wall:.3f} s, {len(got)} samples, max |server - "
+                  f"tts_batch| {diff} int16 steps (bound 1)")
+            check(len(got) == len(want) > 0 and diff <= 1, "the server's wav differs")
+
+        with Phase(f"server: {SERVE_CONCURRENT} concurrent default /api/synthesize requests"):
+            batcher = srv.batcher["batcher"]
+            before = batcher.dispatches
+            refs = [ref_bytes] * SERVE_CONCURRENT
+            # each coalesced dispatch's texts and embeddings, for the hold below
+            dispatched = []
+
+            def recording(texts, ref_wav, embed=None, **kw):
+                dispatched.append((list(texts), np.array(embed)))
+                return type(pipe).tts_batch(pipe, texts, ref_wav, embed=embed, **kw)
+
+            def one(i):
+                return _http(url, "/api/synthesize", {"text": (None, SERVE_TEXTS[i]),
+                                                      "ref": ("r.wav", refs[i])}, "multipart")
+
+            pipe.tts_batch = recording
+            try:
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(SERVE_CONCURRENT) as pool:
+                    results = list(pool.map(one, range(SERVE_CONCURRENT)))
+                wall = time.perf_counter() - t0
+            finally:
+                del pipe.tts_batch
+            dispatches = batcher.dispatches - before
+            audio_s = sum(len(_wav_of(b)[1]) for _, b, _ in results) / 16000
+            print(f"  tts_batch dispatches: {dispatches} for {SERVE_CONCURRENT} requests")
+            print(f"  per-request wall s: {[round(w, 3) for _, _, w in results]}")
+            print(f"  requests per second: {SERVE_CONCURRENT / wall:.2f} ({wall:.3f} s for all, "
+                  f"{audio_s:.2f} s of audio)")
+            check(all(h.get("X-Coalesced") == "1" for h, _, _ in results), "not coalesced")
+            check(dispatches < SERVE_CONCURRENT, f"{dispatches} dispatches: no coalescing")
+            # every response against a direct tts_batch of its own dispatch
+            # (the same texts and embeddings in the same batch), within one
+            # int16 step after _wav_bytes' peak scaling
+            check(len(dispatched) == dispatches and sorted(t for d, _ in dispatched for t in d)
+                  == sorted(SERVE_TEXTS), f"dispatched {[d for d, _ in dispatched]}")
+            got = {SERVE_TEXTS[i]: _wav_of(b)[1] for i, (_, b, _) in enumerate(results)}
+            worst = 0
+            for texts, embeds in dispatched:
+                for text, pcm in zip(texts, pipe.tts_batch(texts, None, embed=embeds)):
+                    _, want = _wav_of(_wav_bytes(pcm.astype(np.float32) / 32767.0, 16000))
+                    check(len(got[text]) == len(want) > 0, f"{text!r}: {len(got[text])} "
+                          f"samples, tts_batch {len(want)}")
+                    worst = max(worst, int(np.abs(got[text].astype(np.int32)
+                                                  - want.astype(np.int32)).max()))
+            print(f"  dispatch sizes {[len(d) for d, _ in dispatched]}; max |server - tts_batch "
+                  f"of the same dispatch| over all {SERVE_CONCURRENT} responses: {worst} int16 "
+                  f"steps (bound 1)")
+            check(worst <= 1, "a coalesced response differs from its dispatch's tts_batch")
+
+        with Phase("server: /api/stream_tts and /api/convert"):
+            req = _request(url, "/api/stream_tts", {"text": (None, SERVE_STREAM_TEXT),
+                                                    "ref": ("r.wav", ref_bytes)}, "multipart")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                head = r.read(44)
+                first_pcm = r.read(2)
+                t_first = time.perf_counter() - t0
+                rest = r.read()
+                n_chunks = int(r.headers["X-Chunks"])
+            total = time.perf_counter() - t0
+            pcm = np.frombuffer(first_pcm + rest, np.int16)
+            print(f"  /api/stream_tts: {n_chunks} chunks, first chunk after {t_first:.3f} s, "
+                  f"all after {total:.3f} s, {len(pcm)} samples")
+            check(head[:4] == b"RIFF" and n_chunks > 1 and len(pcm) > 0, "stream_tts output")
+            hdrs, body, wall = _http(url, "/api/convert", {"ref": ("r.wav", ref_bytes),
+                                                           "src": ("s.wav", src_bytes)},
+                                     "multipart", timeout=300)
+            sr, pcm = _wav_of(body)
+            print(f"  /api/convert (PPG-VC, HiFi-GAN): {wall:.3f} s (the converter's build "
+                  f"included), {len(pcm)} samples, X-RTF {hdrs['X-RTF']}")
+            check(sr == 16000 and len(pcm) > 0, "convert output")
+            launches = read_counts()
+            print(f"  launches on the server path: {launches} (K1 on the WaveRNN vocode only)")
+            print(f"  server peak memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+            check(launches["wavernn_sample"] >= 1 and launches["maximum_path"] == 0
+                  and launches["wavernn_sample(time_major=False)"] == 0,
+                  f"launches on the server path {launches}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    check(not batcher._thread.is_alive() and batcher.pipe is None,
+          "the coalescer outlived the server")
+
+    with Phase("server: K1 on the WaveRNN vocode's inputs against its plain version"):
+        check(len(sampled) == 1, f"{len(sampled)} sampler calls on the WaveRNN vocode")
+        w_bf16, mels, aux, seed, n_classes, greedy_path = sampled[0]
+        voc = built["wavernn"]
+        check(w_bf16 is voc.packed and not greedy_path,
+              "the vocode did not sample with the vocoder's packed weights")
+        w_f32 = pack_wavernn_weights(voc.model, torch.float32)
+        f, t, _ = mels.shape
+        print(f"  held: F={f} folds x T={t} steps, mels {tuple(mels.shape)}, aux "
+              f"{tuple(aux.shape)}, seed {seed}")
+        k1_err = hold_k1_call(w_f32, w_bf16, mels, aux, seed, n_classes)
+        k1_ms = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes), reps=3)
+        k1_plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))
+        print(f"  K1 at this path's call (bf16, sampled): {k1_ms:.3f} ms ({k1_ms / t * 1e3:.2f} "
+              f"us per step), plain {k1_plain_ms:.3f} ms ({tf32_state()})")
+    return built["pipe"], k1_err
+
+
+def phase_cli(pipe, tmp: Path):
+    with Phase("CLI: python -m mockingbird_tpu_torch.cli tts, in a subprocess"):
+        # the flagship's seeded HiFi-GAN at the committed width, as an export
+        save_npz(tmp / "vocoder_hifigan.npz", to_flax(pipe.vocoder.model))
+        (tmp / "vocoder_hifigan.json").write_text(json.dumps(pipe.vocoder.cfg.to_dict()))
+        out = tmp / "cli.wav"
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "mockingbird_tpu_torch.cli", "--device",
+                              str(pipe.device), "tts", TEXTS[0],
+                              "--ref", str(REF_WAV), "--out", str(out),
+                              "--vocoder", str(tmp / "vocoder_hifigan.npz")],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"the CLI failed: {run.stderr[-2000:]}")
+        line = [ln for ln in run.stdout.splitlines() if ln.startswith("Wrote")]
+        check(len(line) == 1 and out.exists(), f"the CLI wrote no wav: {run.stdout[-1000:]}")
+        sr, wav = _wav_of(out.read_bytes())
+        print(f"  {line[0]}; process wall {wall:.2f} s (start-up and build included), "
+              f"{len(wav)} samples at {sr} Hz")
+        check(sr == 16000 and len(wav) > 0 and len(wav) % 256 == 0, f"CLI wav {sr} Hz, "
+              f"{len(wav)} samples")
+
+
+# ---------------------------------------------------------------------------
 # the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2075,9 +2484,10 @@ def phase_k2(dev, train_inputs, launches):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
 
 
-def phase_k1(dev, pipe, captured, launches, train_err):
-    """K1's hold at the TTS path's call; ``train_err`` is its error at the
-    WaveRNN trainer's call, held there, which its ``max_abs_err`` takes in."""
+def phase_k1(dev, pipe, captured, launches, path_err):
+    """K1's hold at the TTS path's call; ``path_err`` is its largest error
+    at the WaveRNN trainer's and the server's calls, held there, which its
+    ``max_abs_err`` takes in."""
     with Phase("K1 wavernn_sample and K1b (fold-major): kernel against its plain version"):
         check(len(captured) == 1, f"expected one sampler call, got {len(captured)}")
         mels, aux, seed, n_classes, _ = captured[0]
@@ -2178,7 +2588,7 @@ def phase_k1(dev, pipe, captured, launches, train_err):
     common = {"route": "cuda", "source": "mockingbird_tpu_torch/ops/csrc/wavernn_sample.cu",
               "plain_ms": plain_ms, "library_ms": library_ms}
     return [dict(common, name="wavernn_sample", replaces="mockingbird_tpu/ops/wavernn_sample.py:138",
-                 launches=launches["wavernn_sample"], max_abs_err=max(err[True], train_err),
+                 launches=launches["wavernn_sample"], max_abs_err=max(err[True], path_err),
                  ms=ms,
                  bound_ms=bounds["K1"][0], bound_by=bounds["K1"][1]),
             # no path takes the fold-major layout (in the JAX package neither):
@@ -2235,7 +2645,16 @@ def main() -> int:
         phase_encoder_train(dev, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         phase_ppg2mel_train(dev, Path(tmp))
-    kernels = phase_k1(dev, pipe, captured, tts_launches, k1_train_err)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_emotion(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_pipe, k1_serve_err = phase_serve(dev, Path(tmp))
+        phase_cli(serve_pipe, Path(tmp))
+        del serve_pipe
+    gc.collect()
+    print(f"  after the server and the CLI: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated on the card")
+    kernels = phase_k1(dev, pipe, captured, tts_launches, max(k1_train_err, k1_serve_err))
     kernels.append(phase_k2(dev, train_inputs, train_launches))
     print(f"== total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": kernels}))

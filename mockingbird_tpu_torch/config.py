@@ -1,11 +1,12 @@
 """Dot-accessible, nestable, serialisable configuration.
 
 A copy of the parts of ``mockingbird_tpu/config.py`` this port uses
-(``Config``, ``sv2tts_audio_config``, ``encoder_audio_config``): the port
-imports nothing of the JAX package.
+(``Config`` with its ``--hparams`` override string, ``sv2tts_audio_config``,
+``encoder_audio_config``): the port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import ast
 import json
 from pathlib import Path
 from typing import Any, Dict
@@ -48,6 +49,32 @@ class Config(dict):
                 self[k] = self._wrap(v)
         return self
 
+    def set_path(self, dotted: str, value: Any) -> None:
+        """Set ``a.b.c`` style nested key, creating intermediate Configs."""
+        parts = dotted.split(".")
+        node = self
+        for p in parts[:-1]:
+            if not isinstance(node.get(p), Config):
+                node[p] = Config()
+            node = node[p]
+        node[parts[-1]] = self._wrap(value)
+
+    def parse(self, override: str) -> "Config":
+        """Apply a ``key=value,key2=value2`` override string (dotted keys
+        allowed; values parsed as Python literals, else kept as strings)."""
+        if not override:
+            return self
+        for item in _split_top_level(override):
+            if not item.strip():
+                continue
+            key, _, raw = item.partition("=")
+            try:
+                value = ast.literal_eval(raw)
+            except (ValueError, SyntaxError):
+                value = raw  # plain string
+            self.set_path(key.strip(), value)
+        return self
+
     def to_dict(self) -> Dict[str, Any]:
         def conv(v):
             if isinstance(v, Config):
@@ -63,6 +90,34 @@ class Config(dict):
 
     def clone(self) -> "Config":
         return Config(self.to_dict())
+
+
+def _split_top_level(s: str):
+    """Split on commas not inside brackets/quotes, so `a=[1,2],b=3` works."""
+    out, depth, quote, cur = [], 0, None, []
+    for ch in s:
+        if quote:
+            cur.append(ch)
+            if ch == quote:
+                quote = None
+            continue
+        if ch in "\"'":
+            quote = ch
+            cur.append(ch)
+        elif ch in "([{":
+            depth += 1
+            cur.append(ch)
+        elif ch in ")]}":
+            depth -= 1
+            cur.append(ch)
+        elif ch == "," and depth == 0:
+            out.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    if cur:
+        out.append("".join(cur))
+    return out
 
 
 def sv2tts_audio_config() -> Config:

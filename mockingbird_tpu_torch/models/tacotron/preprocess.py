@@ -7,8 +7,8 @@ on the device; the JAX package's ``melspectrogram_bucketed`` equals it and
 buckets only for XLA compile counts), the length filters, the pipe-separated
 ``train.txt``, then speaker embeddings of the saved audio by the port's GE2E
 encoder on the device. A thread pool overlaps the host work. The emotion
-embeddings for VITS (``create_emotion_embeddings``) wait for the port's
-emotion extractor.
+embeddings for VITS (``create_emotion_embeddings``) come from the port's
+wav2vec2 extractor (``emotion.EmotionExtractor``).
 """
 from __future__ import annotations
 
@@ -231,3 +231,39 @@ def create_embeddings(synthesizer_root: Path, encoder_model_fpath=None, n_proces
     with ThreadPoolExecutor(n_processes) as pool:
         list(pool.map(embed_one, metadata))
     print(f"Embedded {len(metadata)} utterances")
+
+
+def create_emotion_embeddings(synthesizer_root: Path, weights_path=None, batch_size: int = 8,
+                              seed: Optional[int] = None,
+                              device: Union[str, torch.device] = "cuda") -> None:
+    """Emotion-embed every utterance of ``train.txt``: ``emo/emo-<utt>.npy``
+    (the 1024-d wav2vec2 embeddings ``VitsDataset`` reads) from the audio
+    ``preprocess_dataset`` saved, ``batch_size`` utterances per forward.
+    Weights as ``EmotionExtractor`` takes them (``weights_path``, ``seed``,
+    else the local HF cache, else neutral zeros with a warning). Existing
+    files are kept."""
+    from .emotion import EmotionExtractor
+
+    dev = resolve_device(device)
+    synthesizer_root = Path(synthesizer_root)
+    wav_dir = synthesizer_root / "audio"
+    emo_dir = synthesizer_root / "emo"
+    emo_dir.mkdir(exist_ok=True)
+    with (synthesizer_root / "train.txt").open("r", encoding="utf-8") as f:
+        metadata = [line.split("|") for line in f if line.strip()]
+    todo = []
+    for m in metadata:
+        out = emo_dir / f"emo-{m[0].split('-', 1)[-1]}"
+        if not out.exists():
+            todo.append((m[0], out))
+    if not todo:
+        print("All emotion embeddings already exist")
+        return
+    ex = EmotionExtractor(weights_path=weights_path, verbose=True, seed=seed, device=dev)
+    for i in range(0, len(todo), batch_size):
+        chunk = todo[i:i + batch_size]
+        embeds, _ = ex.extract_batch([np.load(wav_dir / fname) for fname, _ in chunk])
+        for (_, out), emb in zip(chunk, embeds):
+            np.save(out, emb, allow_pickle=False)
+    print(f"Emotion-embedded {len(todo)} utterances "
+          f"({'wav2vec2' if ex.available else 'neutral-zero fallback'})")

@@ -619,3 +619,24 @@ def test_ppg2mel_f32_training_step_on_card_matches_cpu(card):
     assert _rel_l2(out["card"][1], out["cpu"][1]) <= 1e-3
     for (name, a), b in zip(gpu.named_buffers(), cpu.buffers()):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_emotion_extractor_on_card_matches_cpu(card, width):
+    """Seeded f32 wav2vec2 emotion extractor (full: ``wav2emo_config()``, 12
+    x 1024 pre-LN, about 164 M parameters; small: 2 x 64 post-LN with the
+    group norm), two wavs of different lengths in one 1 s bucket padding:
+    embeddings and logits on the card (TF32 off) within 1e-4 relative L2 of
+    the CPU."""
+    from mockingbird_tpu_torch.models.tacotron.emotion import EmotionExtractor
+    cfg = {} if width == "full" else dict(
+        hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
+        num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+        feat_extract_norm="group", do_stable_layer_norm=False)
+    cpu = EmotionExtractor(cfg=cfg, seed=0, device="cpu")
+    gpu = EmotionExtractor(cfg=cfg, seed=0, device=card)
+    rng = np.random.RandomState(0)
+    wavs = [(0.3 * rng.randn(n)).astype(np.float32) for n in (32_000, 21_111)]
+    for g, c in zip(gpu.extract_batch(wavs), cpu.extract_batch(wavs)):
+        assert g.shape == c.shape and np.isfinite(g).all()
+        assert np.linalg.norm(g - c) <= 1e-4 * np.linalg.norm(c)

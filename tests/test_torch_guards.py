@@ -139,30 +139,52 @@ def test_weight_load_is_strict():
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """Also the GE2E and ppg2mel trainers, which raise before they read any
-    data."""
+    data, and the entry points of the serving slice: the emotion extractor
+    and its preprocessor, the server (before it binds a port), the web
+    toolbox's default factories, the subtitle renderer's pipeline backend
+    and the CLI's global ``--device``."""
     import importlib
+    from mockingbird_tpu_torch.cli.main import build_parser, main
     from mockingbird_tpu_torch.models.encoder import SpeakerEncoderInference
-    from mockingbird_tpu_torch.models.tacotron import Synthesizer
+    from mockingbird_tpu_torch.models.tacotron import Synthesizer, create_emotion_embeddings
+    from mockingbird_tpu_torch.models.tacotron.emotion import EmotionExtractor
     from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder, load_vocoder
     from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
+    from mockingbird_tpu_torch.serve import serve
+    from mockingbird_tpu_torch.serve.toolbox import WebToolbox
+    from mockingbird_tpu_torch.speak import PipelineBackend
     trainers = tuple(importlib.import_module(f"mockingbird_tpu_torch.models.{m}.train").train
                      for m in ("encoder", "ppg"))
+    tb = WebToolbox()
+    factories = (lambda: tb.pipeline, lambda: tb.vc, lambda: tb.get_vocoder("hifigan"),
+                 lambda: tb.get_vocoder("wavernn"))
     entries = (SpeakerEncoderInference, Synthesizer, WaveRnnVocoder, load_vocoder,
-               VoiceCloningPipeline) + trainers
+               VoiceCloningPipeline, EmotionExtractor, create_emotion_embeddings, serve,
+               WebToolbox, PipelineBackend) + trainers
     for fn in entries:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert build_parser().parse_args(["serve"]).device == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mockingbird_tpu_torch.resolve_device()
-    for fn in entries:
+    for fn in tuple(f for f in entries if f is not WebToolbox) + factories:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             if fn is load_vocoder:
                 fn("x/vocoder_wavernn.npz")
             elif fn in trainers:
                 fn("run", tmp_path / "missing", tmp_path / "models")
+            elif fn is create_emotion_embeddings:
+                fn(tmp_path / "missing")
+            elif fn is serve:
+                fn(port=0, block=False)
             else:
                 fn()
+    for argv in (["tts", "x", "--ref", "r.wav"], ["emo", str(tmp_path / "missing")],
+                 ["serve", "--port", "0"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
     assert mockingbird_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    assert not list(tmp_path.iterdir())
 
 
 
@@ -174,7 +196,8 @@ def test_sampler_refuses_other_devices():
 
 
 @pytest.mark.parametrize("entry", ["encoder", "synthesizer", "wavernn", "ppg2mel",
-                                   "ppg_extractor", "make_voice_converter"])
+                                   "ppg_extractor", "make_voice_converter", "emotion",
+                                   "emo_cli"])
 def test_missing_weights_path_raises(entry, tmp_path):
     """A weights path that does not exist raises ``FileNotFoundError`` in
     every constructor that takes one (a typo must not give seeded noise);
@@ -182,8 +205,14 @@ def test_missing_weights_path_raises(entry, tmp_path):
     from mockingbird_tpu_torch.models.ppg import PPGExtractor, VoiceConverter
     from mockingbird_tpu_torch.models.tacotron import Synthesizer
     from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder
+    from mockingbird_tpu_torch.cli.main import main
+    from mockingbird_tpu_torch.models.tacotron.emotion import EmotionExtractor
     from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline, make_voice_converter
     missing = tmp_path / "missing.npz"
+    syn = tmp_path / "syn"
+    (syn / "audio").mkdir(parents=True)
+    np.save(syn / "audio" / "audio-a_1.npy", np.zeros(800, np.float32))
+    (syn / "train.txt").write_text("audio-a_1.npy|mel-a_1.npy|embed-a_1.npy|800|3|x\n")
     make = {"encoder": lambda p: VoiceCloningPipeline(encoder_fpath=p, vocoder=object(),
                                                        verbose=False, device="cpu"),
             "synthesizer": lambda p: Synthesizer(p, verbose=False, device="cpu"),
@@ -192,7 +221,10 @@ def test_missing_weights_path_raises(entry, tmp_path):
                                                 verbose=False, device="cpu"),
             "ppg_extractor": lambda p: PPGExtractor(p, verbose=False, device="cpu"),
             "make_voice_converter": lambda p: make_voice_converter(p, verbose=False,
-                                                                   device="cpu")}[entry]
+                                                                   device="cpu"),
+            "emotion": lambda p: EmotionExtractor(p, device="cpu"),
+            "emo_cli": lambda p: main(["--device", "cpu", "emo", str(syn), "--weights",
+                                       str(p)])}[entry]
     with pytest.raises(FileNotFoundError, match="missing.npz"):
         make(missing)
     with pytest.raises(FileNotFoundError):
@@ -420,3 +452,37 @@ def test_vocoder_trainer_entry_points_default_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn("run", tmp_path, tmp_path)
     assert not list(tmp_path.iterdir())
+
+
+def test_port_modules_of_the_serving_slice_are_guarded():
+    """The modules this guard file's import test walks include every module
+    of the emotion extractor, the server, the CLI, ``speak`` and the
+    profiler."""
+    names = set(_modules())
+    for name in ("models.wav2emo", "models.tacotron.emotion", "interop",
+                 "interop.torch_weights", "serve", "serve.http", "serve.toolbox",
+                 "serve.console", "cli", "cli.main", "cli.__main__", "speak", "speak.srt",
+                 "speak.stretch", "speak.timeline", "speak.api_client", "train.profiler"):
+        assert f"mockingbird_tpu_torch.{name}" in names, name
+
+
+def test_cli_help_runs_without_jax():
+    """``python -m mockingbird_tpu_torch.cli --help`` in a process where
+    ``jax``, ``flax``, ``orbax`` and ``mockingbird_tpu`` cannot be imported."""
+    script = BLOCKER + """
+import runpy
+sys.argv = ["mockingbird_tpu_torch.cli", "--help"]
+try:
+    runpy.run_module("mockingbird_tpu_torch.cli", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "usage: mockingbird_tpu_torch" in out.stdout and "--device" in out.stdout
+    for name in ("tts", "emo", "serve", "demo", "render-timeline", "train-vc"):
+        assert name in out.stdout, name
+    assert "import-checkpoint" not in out.stdout and "launch" not in out.stdout
