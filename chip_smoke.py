@@ -88,7 +88,7 @@ Phases, each printing its elapsed seconds:
      counted: at least one per sample); the last checkpoint's sampler
      weights are the trained model's, not the first's; K1 held against its
      plain version on the last sampler call of this path (its own folds,
-     greedy and sampled, f32 and bf16 weights, bounds as in 17) and timed;
+     greedy and sampled, f32 and bf16 weights, bounds as in 21) and timed;
      one MOL step; the
      ``remat`` step against the plain one in f32 (TF32 off); the RAW step
      timed warm with its peak memory;
@@ -136,7 +136,33 @@ Phases, each printing its elapsed seconds:
   16. the CLI: ``python -m mockingbird_tpu_torch.cli tts`` in a subprocess
      with a timeout, seeded weights and the flagship's HiFi-GAN as an
      ``.npz`` export: the wav's sample rate and the CLI's RTF;
-  17. each kernel held against its plain PyTorch version on the card, with
+  17. data parallelism, one NCCL rank: ``python -m mockingbird_tpu_torch.cli
+     launch --nprocs 1 -- train-vits`` in a subprocess with a timeout (the
+     ``MB_*`` environment; ``--hparams`` give the committed VITS config) on
+     phase 7's synthetic dataset, f32, ``PAR_STEPS`` steps of batch 16; the
+     rank reports its K2 launches (``MB_RUN_REPORT``: one per step) and its
+     logged losses are held against the same steps in this process within
+     1e-5 relative, both runs with deterministic algorithms (under the
+     defaults two runs of the same steps differ by ~1e-4 after 3); the
+     step times of both;
+  18. data parallelism, two ranks on the one card over gloo (NCCL refuses
+     two ranks on one device), CUDA tensors, TF32 off, deterministic
+     algorithms: ``GLOO_STEPS`` VITS
+     steps of 8 rows per rank (``BucketBatcher``'s rank-strided rows) against
+     one rank on the batch of 16, within 1e-5 relative; K2 once per step on
+     each rank; the step times of both;
+  19. the checkpoint importer: a reference-layout HiFi-GAN ``state_dict``
+     (``weight_g``/``weight_v``, in a ``{"generator": ...}`` container) made
+     from the flagship generator's seeded weights, ``cli import-checkpoint
+     --family hifigan`` in a subprocess, the ``.npz`` (and its ``.json``
+     sidecar) in ``GanVocoder`` on the card against the same generator from
+     its flax tree, one mel, TF32 off, within 1e-5 of the output's peak;
+  20. the unbatched WaveRNN generator: ``infer_waveform(batched=False)`` at
+     the committed RAW width, seeded, on a mel of ``UNBATCHED_SECONDS``: one
+     K1 launch at F=1 over the whole utterance (its launches counted), the
+     call held against the plain version as in 11, and K1 timed at F=1 (ms
+     and µs per step);
+  21. each kernel held against its plain PyTorch version on the card, with
      the stated tolerance, and timed beside it: K1 (WaveRNN sampler) and K1b
      (its fold-major layout) on the TTS path's own inputs, then timed at
      one utterance's folds and at 4 folds per SM, with the launch plan, the
@@ -144,7 +170,9 @@ Phases, each printing its elapsed seconds:
      (alignment search, exactly equal) on the training step's own inputs
      and on ragged, tied and band-less cases, timed per call with CUDA
      events, the kernel's own device time from a profiler trace beside it;
-  18. one ``kernels`` JSON line, then the contract line
+  22. one ``kernels`` JSON line (each kernel's launches summed over the
+     paths that count them, the ranks' reports included), then the
+     contract line
      ``{"ok": true, "device": {...}}`` last.
 
 Every path is timed under PyTorch's defaults, which is what a caller of the
@@ -320,6 +348,12 @@ SERVE_STREAM_TEXT = (
     "at a time. the first chunk of audio should arrive long before the whole text has been "
     "synthesized by the server! and the last sentence closes the stream, so that the client "
     "hears every chunk in the order it was written?")
+# data parallelism: the VITS training phase's data and config, f32; 3 steps
+# of one NCCL rank under launch, 2 steps of two gloo ranks on the one card;
+# the unbatched WaveRNN generator on a mel of about 0.5 s
+PAR_STEPS = 3
+GLOO_STEPS = 2
+UNBATCHED_SECONDS = 0.5
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -348,6 +382,36 @@ def full_f32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@contextmanager
+def deterministic():
+    """PyTorch's and cuDNN's deterministic algorithms, restored after, for
+    the data-parallel holds: under the defaults two runs of the same 3 f32
+    VITS steps in one process differ by ~1e-4 relative (atomics in the
+    backward, Adam's normalised steps amplifying them), with these on by
+    0 (``scripts/torch_gloo_gap.py --parts determinism``). Warn only: reflection padding's backward has no deterministic
+    kernel, and its atomics add at most two values per element, which
+    commute."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                        benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=True,
+                                        allow_tf32=torch.backends.cudnn.allow_tf32):
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+# the same switch at the start of a process the smoke starts (a
+# ``sitecustomize`` on its ``PYTHONPATH``)
+DETERMINISTIC_SITE = """import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.backends.cudnn.deterministic = True
+"""
 
 
 def tf32_state() -> str:
@@ -408,13 +472,19 @@ def device_ms(fn, kernel: str, reps: int = 20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                 for e in events if kernel in e.key)
+        if us > 0:
+            return us / reps / 1e3
+        print(f"  device_ms: no {kernel} in trace {attempt + 1} of 2, which holds "
+              f"{len(events)} names: {[e.key[:40] for e in events][:8]}")
+    return None
 
 
 class Stages:
@@ -2393,6 +2463,293 @@ def phase_cli(pipe, tmp: Path):
 
 
 # ---------------------------------------------------------------------------
+# data parallelism, the checkpoint importer, the unbatched WaveRNN generator
+# ---------------------------------------------------------------------------
+
+def _vits_hparams(cfg) -> str:
+    """``--hparams`` that turn the CLI's ``vits_config()`` into ``cfg``."""
+    base = vits_config()
+    return ",".join(f"{k}={v!r}" for k, v in cfg.to_dict().items()
+                    if k not in base or base[k] != v)
+
+
+def _logged(models: Path, run_id: str) -> tuple:
+    """(each step's losses (gen, disc, mel, dur, kl), each step's ms) that
+    the VITS trainer logged."""
+    recs = [json.loads(line) for line in
+            (models / run_id / "logs_vits" / "scalars.jsonl").read_text().splitlines()]
+    keys = ("train/gen", "train/disc", "train/mel", "train/dur", "train/kl")
+    return [[r[k] for k in keys] for r in recs], [r["train/ms_per_step"] for r in recs]
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
+
+
+def _reports(stdout: str) -> list:
+    return [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines()
+            if ln.startswith("RUN_REPORT ")]
+
+
+def _env(**extra) -> dict:
+    import os
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MB_")}
+    env.update(extra)
+    return env
+
+
+def _vits_run(run_id: str, data: Path, models: Path, cfg, batch: int, steps: int, dev):
+    """``vits_train`` in f32 with a record per step; returns its wall seconds."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    vits_train(run_id, data, models, cfg=cfg, batch_size=batch, total_steps=steps,
+               save_every=0, log_every=1, eval_every=0, precision="fp32", device=dev)
+    sync()
+    return time.perf_counter() - t0
+
+
+def phase_parallel_nccl(dev, tmp: Path):
+    """``cli launch --nprocs 1 -- train-vits``: one NCCL rank (the ``MB_*``
+    environment, ``initialize_from_env``) on the VITS training phase's data
+    and config, f32, against the same 3 steps in this process, both with
+    deterministic algorithms (``deterministic``; in the rank through a
+    ``sitecustomize``)."""
+    cfg = Config(vits_config()).merge(Config.from_json(VITS_JSON)).merge(VITS_CFG)
+    _write_dataset(tmp / "data", cfg)
+    (tmp / "site").mkdir()
+    (tmp / "site/sitecustomize.py").write_text(DETERMINISTIC_SITE)
+    with Phase(f"parallel (NCCL): launch --nprocs 1 -- train-vits, {PAR_STEPS} steps, "
+               f"batch {TRAIN_BATCH}, f32, deterministic algorithms"):
+        zero_counts()
+        with deterministic():
+            wall_one = _vits_run("one", tmp / "data", tmp / "m1", cfg, TRAIN_BATCH, PAR_STEPS,
+                                 dev)
+        here = read_counts()
+        check(here["maximum_path"] == PAR_STEPS, f"K2 launched {here['maximum_path']} times "
+              f"in the in-process run")
+        zero_counts()
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "mockingbird_tpu_torch.cli", "--device", dev.type,
+             "--hparams", _vits_hparams(cfg), "launch", "--nprocs", "1", "--",
+             "train-vits", str(tmp / "data"), "nccl", "-m", str(tmp / "m2"), "--batch_size",
+             str(TRAIN_BATCH), "--total_steps", str(PAR_STEPS), "--precision", "fp32",
+             "--log_every", "1"],
+            cwd=ROOT, env=_env(MB_RUN_REPORT="1", PYTHONPATH=str(tmp / "site")),
+            capture_output=True, text=True, timeout=600)
+        wall_launch = time.perf_counter() - t0
+        check(run.returncode == 0, f"launch failed: {run.stdout[-1500:]} {run.stderr[-1500:]}")
+        reports = _reports(run.stdout)
+        check(len(reports) == 1 and reports[0]["world"] == 1, f"rank reports {reports}")
+        launches = reports[0]["launches"]
+        print(f"  the rank's report: {reports[0]}")
+        check(launches["maximum_path"] == PAR_STEPS,
+              f"K2 launched {launches['maximum_path']} times on the rank in {PAR_STEPS} steps")
+        (one, ms_one), (two, ms_two) = _logged(tmp / "m1", "one"), _logged(tmp / "m2", "nccl")
+        err = _rel_err(two, one)
+        for step, (a, b) in enumerate(zip(one, two), 1):
+            print(f"  step {step}: in-process (gen, disc, mel, dur, kl) {a}; NCCL rank {b}")
+        print(f"  largest relative difference {err:.3g} (bound 1e-5); ms per step in-process "
+              f"{ms_one}, on the NCCL rank {ms_two} (step 1 includes the first calls); wall "
+              f"{wall_one:.2f} s in-process, {wall_launch:.2f} s for the launch (process start "
+              f"and the model's build included); {tf32_state()}")
+        check(len(one) == len(two) == PAR_STEPS and err <= 1e-5,
+              f"the NCCL rank's losses differ from the in-process run's by {err:.3g}")
+    return launches
+
+
+def gloo_vits_rank(data: str, models: str, cfg: str, batch: int, steps: int,
+                   device: str = DEVICE) -> None:
+    """One rank of ``phase_parallel_gloo`` (run in its own process with the
+    ``MB_*`` environment): a gloo group over ``device``'s tensors, then VITS
+    training of this rank's rows at the config ``cfg`` (JSON), TF32 off and
+    deterministic algorithms on."""
+    from mockingbird_tpu_torch.parallel import multihost
+    started = multihost.initialize_from_env(device, backend="gloo")
+    check(started and torch.distributed.get_backend() == "gloo", "no gloo group")
+    with full_f32(), deterministic():
+        zero_counts()
+        _vits_run("gloo", Path(data), Path(models), Config(json.loads(cfg)), batch, steps,
+                  multihost.rank_device(device))
+    print("RUN_REPORT " + json.dumps({"rank": multihost.process_index(),
+                                      "world": multihost.process_count(),
+                                      "launches": read_counts()}), flush=True)
+    multihost.shutdown()
+
+
+def gloo_vits_ranks(tmp: Path, cfg, steps: int, dev) -> list:
+    """Two ``gloo_vits_rank`` processes on ``tmp / "data"``, training into
+    ``tmp / "m2"`` (run ``gloo``) → their ``RUN_REPORT`` dicts."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    code = (f"import chip_smoke as cs; cs.gloo_vits_rank({str(tmp / 'data')!r}, "
+            f"{str(tmp / 'm2')!r}, {json.dumps(cfg.to_dict())!r}, {TRAIN_BATCH // 2}, "
+            f"{steps}, {dev.type!r})")
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              env=_env(MB_COORDINATOR=f"localhost:{port}",
+                                       MB_NUM_PROCESSES="2", MB_PROCESS_ID=str(r)))
+             for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for proc, out in zip(procs, outs):
+        check(proc.returncode == 0, f"a gloo rank failed: {out[-3000:]}")
+    return [r for out in outs for r in _reports(out)]
+
+
+def phase_parallel_gloo(dev, tmp: Path):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), CUDA tensors, against one rank on the whole batch, TF32 off and
+    deterministic algorithms on."""
+    cfg = Config(vits_config()).merge(Config.from_json(VITS_JSON)).merge(VITS_CFG)
+    _write_dataset(tmp / "data", cfg)
+    with Phase(f"parallel (2 ranks on the card, gloo): VITS, {GLOO_STEPS} steps of "
+               f"{TRAIN_BATCH // 2} rows per rank, f32"):
+        with full_f32(), deterministic():
+            zero_counts()
+            wall_one = _vits_run("one", tmp / "data", tmp / "m1", cfg, TRAIN_BATCH, GLOO_STEPS,
+                                 dev)
+        t0 = time.perf_counter()
+        reports = gloo_vits_ranks(tmp, cfg, GLOO_STEPS, dev)
+        wall_two = time.perf_counter() - t0
+        print(f"  the ranks' reports: {reports}")
+        check(sorted(r["rank"] for r in reports) == [0, 1]
+              and all(r["launches"]["maximum_path"] == GLOO_STEPS for r in reports),
+              f"K2 did not launch once per step on each rank: {reports}")
+        (one, ms_one), (two, ms_two) = _logged(tmp / "m1", "one"), _logged(tmp / "m2", "gloo")
+        for step, (a, b) in enumerate(zip(one, two), 1):
+            print(f"  step {step}: one rank (gen, disc, mel, dur, kl) {a}; two ranks {b}; "
+                  f"relative difference {_rel_err(b, a):.3g}")
+        err = _rel_err(two, one)
+        print(f"  largest relative difference {err:.3g} (bound 1e-5); ms per step one rank "
+              f"{ms_one}, two gloo ranks on one card (rank 0) {ms_two}; wall {wall_one:.2f} s "
+              f"one rank, {wall_two:.2f} s the two ranks' processes")
+        check(len(one) == len(two) == GLOO_STEPS and err <= 1e-5,
+              f"two gloo ranks differ from one rank by {err:.3g}")
+    return sum(r["launches"]["maximum_path"] for r in reports)
+
+
+def _hifigan_state_dict(tree: dict, cfg) -> dict:
+    """The reference HiFi-GAN's ``state_dict`` layout of a generator's flax
+    tree (the importer's inverse): torch kernels with weight norm stored as
+    ``weight_v`` and ``weight_g = ||v||`` per output slice."""
+    def wn(prefix, parent, name, transposed=False):
+        conv, scale = parent[f"{name}_conv"], parent[name][f"{name}_conv/kernel/scale"]
+        k = conv["kernel"]
+        eff = k * scale / np.sqrt(np.sum(k.reshape(-1, k.shape[-1]) ** 2, axis=0))
+        w = (np.transpose(eff, (1, 2, 0))[:, :, ::-1] if transposed
+             else np.transpose(eff, (2, 1, 0)))
+        w = np.ascontiguousarray(w, np.float32)
+        sd[f"{prefix}.weight_v"] = torch.from_numpy(w)
+        sd[f"{prefix}.weight_g"] = torch.from_numpy(np.sqrt(np.sum(
+            w.reshape(w.shape[0], -1) ** 2, axis=1)).reshape(-1, 1, 1).astype(np.float32))
+        sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(conv["bias"], np.float32))
+
+    sd: dict = {}
+    p = tree["params"]
+    wn("conv_pre", p, "conv_pre")
+    wn("conv_post", p, "conv_post")
+    n_k = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        wn(f"ups.{i}", p, f"ups_{i}", transposed=True)
+        for j in range(n_k):
+            blk = p[f"resblock_{i}_{j}"]
+            for c in range(3):
+                for half in ("convs1", "convs2"):
+                    wn(f"resblocks.{i * n_k + j}.{half}.{c}", blk, f"{half}_{c}")
+    return sd
+
+
+def phase_import(dev, tmp: Path):
+    """``cli import-checkpoint --family hifigan`` of a reference-layout
+    state_dict made from the flagship HiFi-GAN's seeded weights: the
+    ``.npz`` in ``GanVocoder`` on the card against the same generator from
+    its flax tree, TF32 off."""
+    with Phase("import: cli import-checkpoint --family hifigan, the flagship's width"):
+        cfg = Config(hifigan_config()).merge(Config.from_json(GAN_JSON)).merge(GAN_CFG)
+        direct = GanVocoder("hifigan", cfg=dict(cfg), verbose=False, seed=0, half=False,
+                            device=dev)
+        tree = to_flax(direct.model)
+        torch.save({"generator": _hifigan_state_dict(tree, cfg), "steps": 0},
+                   tmp / "g_00000000")
+        (tmp / "hifigan.json").write_text(json.dumps(cfg.to_dict()))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "mockingbird_tpu_torch.cli", "--device",
+                              dev.type, "import-checkpoint", "--family", "hifigan",
+                              "--torch-ckpt", str(tmp / "g_00000000"), "--out",
+                              str(tmp / "imported"), "--config", str(tmp / "hifigan.json")],
+                             cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"import-checkpoint failed: {run.stderr[-2000:]}")
+        print(f"  {run.stdout.strip().splitlines()[-1]} ({wall:.2f} s, process start included)")
+        imported = GanVocoder("hifigan", tmp / "imported.npz", verbose=False, half=False,
+                              device=dev)
+        check(imported.cfg.to_dict() == cfg.to_dict(), "the sidecar's config differs")
+        mel = np.random.RandomState(0).randn(80, 120).astype(np.float32)
+        with full_f32():
+            got, want = imported.infer_waveform(mel), direct.infer_waveform(mel)
+        err = float(np.max(np.abs(got - want)))
+        peak = float(np.max(np.abs(want)))
+        print(f"  vocoded {len(want)} samples; max |imported - direct| {err:.3g}, "
+              f"{err / peak:.3g} of the peak {peak:.3g} (bound 1e-5 of it), TF32 off")
+        check(got.shape == want.shape and err <= 1e-5 * peak,
+              f"the imported generator differs by {err:.3g}")
+
+
+def phase_unbatched(dev):
+    """``WaveRnnVocoder.infer_waveform(batched=False)`` at the committed RAW
+    width, seeded: one K1 launch at F=1 over the whole utterance, held
+    against the plain version, and timed."""
+    cfg = Config(wavernn_config()).merge(Config.from_json(WAVERNN_JSON))
+    voc = WaveRnnVocoder(cfg=cfg, verbose=False, seed=0, device=dev)
+    frames = int(round(UNBATCHED_SECONDS * cfg.sample_rate / cfg.hop_size))
+    mel = np.random.RandomState(1).randn(80, frames).astype(np.float32)
+    captured = []
+
+    def recording(w, mels, aux, seed, n_classes, **kw):
+        captured.append((mels, aux, seed, n_classes))
+        return wavernn_sample(w, mels, aux, seed, n_classes, **kw)
+
+    with Phase(f"unbatched WaveRNN: infer_waveform(batched=False), {frames} frames, F=1"):
+        wavernn_module.wavernn_sample = recording
+        try:
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wav = voc.infer_waveform(mel, batched=False)
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            wavernn_module.wavernn_sample = wavernn_sample
+        print(f"  launches: {launches}; {len(wav)} samples in {wall:.3f} s (first call: "
+              f"packing and the upsampler included)")
+        check(launches["wavernn_sample"] == 1 and len(captured) == 1,
+              f"K1 launched {launches['wavernn_sample']} times")
+        mels, aux, seed, n_classes = captured[0]
+        f, t, _ = mels.shape
+        check(f == 1 and t == frames * cfg.hop_size, f"K1 ran at F={f}, T={t}")
+        check(wav.shape == ((frames - 1) * cfg.hop_size,) and np.isfinite(wav).all(),
+              f"unbatched wav {wav.shape}")
+        err = hold_k1_call(pack_wavernn_weights(voc.model, torch.float32), voc.packed, mels,
+                           aux, seed, n_classes)
+        ms = cuda_ms(lambda: wavernn_sample(voc.packed, mels, aux, seed, n_classes), reps=3)
+        print(f"  K1 at F=1, T={t}: {ms:.3f} ms, {ms / t * 1e3:.2f} us per step "
+              f"({UNBATCHED_SECONDS} s of audio: {UNBATCHED_SECONDS * 1e3 / ms:.2f}x real "
+              f"time)")
+    return launches, err
+
+
+# ---------------------------------------------------------------------------
 # the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -2654,8 +3011,24 @@ def main() -> int:
     gc.collect()
     print(f"  after the server and the CLI: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
           f"allocated on the card")
-    kernels = phase_k1(dev, pipe, captured, tts_launches, max(k1_train_err, k1_serve_err))
-    kernels.append(phase_k2(dev, train_inputs, train_launches))
+    with tempfile.TemporaryDirectory() as tmp:
+        nccl_launches = phase_parallel_nccl(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        gloo_k2 = phase_parallel_gloo(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_import(dev, Path(tmp))
+    unbatched_launches, k1_unbatched_err = phase_unbatched(dev)
+    # each kernel's launches over the paths counted here: TTS, the unbatched
+    # generator and the NCCL rank (K1); VITS training, the NCCL rank and
+    # the two gloo ranks (K2), the ranks' counts as they report them
+    k1_launches = {k: tts_launches[k] + unbatched_launches[k] + nccl_launches[k]
+                   for k in ("wavernn_sample", "wavernn_sample(time_major=False)")}
+    k2_launches = {"maximum_path": train_launches["maximum_path"]
+                   + nccl_launches["maximum_path"] + gloo_k2}
+    print(f"  launches counted: K1 {k1_launches}, K2 {k2_launches}")
+    kernels = phase_k1(dev, pipe, captured, k1_launches,
+                       max(k1_train_err, k1_serve_err, k1_unbatched_err))
+    kernels.append(phase_k2(dev, train_inputs, k2_launches))
     print(f"== total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

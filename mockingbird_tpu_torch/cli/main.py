@@ -21,10 +21,17 @@ the port's counterpart, on the device of the global ``--device`` option
   python -m mockingbird_tpu_torch.cli serve [--port 8080]
   python -m mockingbird_tpu_torch.cli text-to-srt <text file> --out subs.srt
   python -m mockingbird_tpu_torch.cli render-timeline --srt subs.srt --out out.wav --ref ref.wav
+  python -m mockingbird_tpu_torch.cli import-checkpoint --family vits --torch-ckpt G.pth --out vits
+  python -m mockingbird_tpu_torch.cli download-datasets <datasets_root> [--list]
+  python -m mockingbird_tpu_torch.cli launch --nprocs 2 -- train-vits <syn_dir> run1
 
-``import-checkpoint``, ``download-datasets`` and ``launch`` (multi-process
-training) are not ported yet, and ``main`` starts no multihost run.
-Weights come from ``.npz`` exports; without a path, from a seed.
+``main`` starts a data-parallel run from the ``MB_*`` environment
+(``parallel.multihost.initialize_from_env`` on the ``--device`` given:
+NCCL on cards, gloo on the CPU); ``launch`` starts N such processes on this
+host. Weights come from ``.npz`` exports; without a path, from a seed.
+With ``MB_RUN_REPORT`` set, ``main`` prints after the command one line
+``RUN_REPORT {"rank", "world", "launches"}``: the process's rank and each
+kernel's launches in it.
 """
 from __future__ import annotations
 
@@ -112,6 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--total_steps", type=int, default=None)
     sp.add_argument("--precision", choices=("fp32", "bf16"), default="bf16",
                     help="bf16 = mixed-precision compute (fp32 master params)")
+    sp.add_argument("--log_every", type=int, default=10,
+                    help="steps between log lines and scalars.jsonl records")
     sp.set_defaults(func=cmd_train_vits)
 
     sp = sub.add_parser("train-vocoder")
@@ -175,6 +184,32 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--vocoder", type=Path, default=None)
     sp.set_defaults(func=cmd_convert)
 
+    sp = sub.add_parser("import-checkpoint",
+                        help="convert a reference/community torch checkpoint "
+                             "into the port's .npz export (+ .json sidecar)")
+    sp.add_argument("--family", required=True,
+                    choices=["encoder", "tacotron", "wavernn", "hifigan",
+                             "fregan", "vits", "ppg_extractor", "ppg2mel"])
+    sp.add_argument("--torch-ckpt", type=Path, required=True)
+    sp.add_argument("--out", type=Path, required=True)
+    sp.add_argument("--config", type=Path, default=None,
+                    help="optional json config overriding the family defaults")
+    sp.set_defaults(func=cmd_import_checkpoint)
+
+    sp = sub.add_parser("download-datasets",
+                        help="fetch + verify + extract training corpora "
+                             "(datasets_download/download.sh + extract.sh)")
+    sp.add_argument("datasets_root", type=Path)
+    sp.add_argument("--datasets", nargs="*", default=None,
+                    help="subset of corpus names (default: all)")
+    sp.add_argument("--mirror", default="default",
+                    help="default|cn|eu|us or a custom base URL")
+    sp.add_argument("--no-extract", action="store_true",
+                    help="download + verify only")
+    sp.add_argument("--list", action="store_true",
+                    help="print the manifest and exit")
+    sp.set_defaults(func=cmd_download_datasets)
+
     sp = sub.add_parser("text-to-srt",
                         help="plain text -> SRT with estimated timings "
                              "(skills/speak text_to_srt.py)")
@@ -218,6 +253,18 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--models_dir", type=Path, default=Path("saved_models"))
     sp.add_argument("--seed", type=int, default=None)
     sp.set_defaults(func=cmd_serve)
+
+    sp = sub.add_parser(
+        "launch", help="spawn N local training processes connected through "
+        "torch.distributed (the reference's mp.spawn, "
+        "control/cli/vocoder_train.py:73-79); on several hosts run one process "
+        "per card with MB_COORDINATOR/MB_NUM_PROCESSES/MB_PROCESS_ID instead")
+    sp.add_argument("--nprocs", type=int, default=2)
+    sp.add_argument("--port", type=int, default=0, help="coordinator port (0=auto)")
+    sp.add_argument("cmd", nargs=argparse.REMAINDER,
+                    help="CLI command to run in each process, e.g. "
+                         "train-vits <syn_dir> run1 --batch_size 16")
+    sp.set_defaults(func=cmd_launch)
 
     return p
 
@@ -285,7 +332,7 @@ def cmd_train_vits(args):
     from ..models.vits.model import vits_config
     from ..models.vits.train import train
     train(args.run_id, args.syn_dir, args.models_dir, batch_size=args.batch_size,
-          total_steps=args.total_steps, precision=args.precision,
+          total_steps=args.total_steps, precision=args.precision, log_every=args.log_every,
           cfg=_hp_cfg(args, vits_config()), device=args.device)
 
 
@@ -369,6 +416,24 @@ def cmd_convert(args):
     vc.convert_files(args.sources, args.out_dir, vocoder)
 
 
+def cmd_import_checkpoint(args):
+    from ..config import Config
+    from ..interop.import_checkpoint import import_reference_checkpoint
+    cfg = Config.from_json(args.config) if args.config else None
+    import_reference_checkpoint(args.family, args.torch_ckpt, args.out, cfg)
+
+
+def cmd_download_datasets(args):
+    from .. import datasets
+    if args.list:
+        for spec in datasets.CORPORA.values():
+            print(f"{spec.name:18s} SLR{spec.slr:<3d} {spec.archive:24s} "
+                  f"sha256={spec.sha256[:12]}…  {spec.url(args.mirror)}")
+        return
+    datasets.acquire(args.datasets_root, names=args.datasets,
+                     mirror=args.mirror, extract=not args.no_extract)
+
+
 def cmd_text_to_srt(args):
     from .. import speak
     text = (sys.stdin.read() if args.input == "-"
@@ -416,11 +481,73 @@ def cmd_serve(args):
           seed=args.seed, device=args.device)
 
 
+def cmd_launch(args):
+    """Local multi-process launcher: N copies of this CLI with the
+    ``MB_COORDINATOR``/``MB_NUM_PROCESSES``/``MB_PROCESS_ID`` environment,
+    each given this process's ``--device`` and ``--hparams`` (the command's
+    own, placed before its subcommand, win); returns the largest exit code."""
+    import os
+    import socket
+    import subprocess
+
+    cmd = [c for c in args.cmd if c != "--"]
+    if not cmd:
+        raise SystemExit("launch: give a CLI command after --, e.g. "
+                         "launch --nprocs 2 -- train-vits syn run1")
+    port = args.port
+    if not port:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+    procs = []
+    for pid in range(args.nprocs):
+        env = dict(os.environ,
+                   MB_COORDINATOR=f"localhost:{port}",
+                   MB_NUM_PROCESSES=str(args.nprocs),
+                   MB_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mockingbird_tpu_torch.cli", "--device", args.device,
+             "--hparams", args.hparams] + cmd, env=env))
+    rc = 0
+    for p in procs:
+        rc = max(rc, p.wait())
+    raise SystemExit(rc)
+
+
+def _run_report() -> None:
+    """The ``RUN_REPORT`` line: this process's rank, the world, and each
+    kernel's launches in this process. The ranks of ``launch`` share one
+    stdout, so the line goes out in one ``write`` (atomic on a pipe) that
+    starts on a line of its own, whatever another rank left unfinished."""
+    import json
+    import os
+
+    from ..ops.monotonic_align import maximum_path_cuda
+    from ..ops.wavernn_sample import wavernn_sample
+    from ..parallel import multihost
+    line = "\nRUN_REPORT " + json.dumps({
+        "rank": multihost.process_index(), "world": multihost.process_count(),
+        "launches": {"wavernn_sample": wavernn_sample.launches,
+                     "wavernn_sample(time_major=False)": wavernn_sample.launches_fold_major,
+                     "maximum_path": maximum_path_cuda.launches}}) + "\n"
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), line.encode())
+
+
 def main(argv=None):
+    import os
+
+    from ..parallel import multihost
     parser = build_parser()
     args = parser.parse_args(argv)
+    multihost.initialize_from_env(args.device)
     _print_args(args)
-    return args.func(args)
+    try:
+        return args.func(args)
+    finally:
+        if os.environ.get("MB_RUN_REPORT") and args.func is not cmd_launch:
+            _run_report()
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -11,8 +11,12 @@ back in f32 and the loss and EER are computed in f32. The step returns its
 loss, EER and embeddings as tensors: the host reads them only when it logs
 or draws.
 
-Single process: the JAX trainer's mesh and ``multihost`` calls wait for the
-port's data parallelism. The trained parameters are also written as an
+Data parallel across processes (``parallel.multihost``): every rank builds
+the same global batch of speakers and takes its speakers' rows; the loss
+sees every rank's embeddings (``multihost.all_gather``, with its gradient,
+where XLA all-gathers them under the JAX package's mesh), the gradients are
+averaged over ranks before the scaling and the clip, and rank 0 alone
+logs, draws and checkpoints. The trained parameters are also written as an
 ``.npz`` export (``weights.to_flax``) that ``SpeakerEncoderInference``
 loads.
 """
@@ -25,6 +29,7 @@ from typing import Optional, Union
 import torch
 
 from ... import resolve_device
+from ...parallel import multihost
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.optim import clip_by_global_norm
@@ -52,7 +57,9 @@ def make_train_step(params: torch.nn.ModuleDict, opt: torch.optim.Optimizer,
     device, for ``params`` = ``init_params(...)``: the forward in the
     policy's dtype, the GE2E loss in f32, backward, the similarity
     gradients ×0.01, the clip at 3, the optimizer. ``batch`` (S, U, T, 40)
-    on the device; ``embeds`` (S, U, D)."""
+    on the device; ``embeds`` (S, U, D). In a multi-process run ``batch``
+    is this rank's speakers, and the loss, EER and ``embeds`` are those of
+    every rank's speakers together."""
     policy = Policy.from_name(precision)
     model, sim = params["model"], params["similarity"]
     leaves = list(params.parameters())
@@ -60,10 +67,12 @@ def make_train_step(params: torch.nn.ModuleDict, opt: torch.optim.Optimizer,
     def step(batch: torch.Tensor):
         s, u = batch.shape[:2]
         frames = batch.reshape(s * u, *batch.shape[2:])
-        embeds = policy.apply(model, frames).reshape(s, u, -1)
-        loss, sim_matrix = ge2e_loss(embeds, sim["weight"], sim["bias"])
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with multihost.sharded():
+            embeds = multihost.all_gather(policy.apply(model, frames).reshape(s, u, -1))
+            loss, sim_matrix = ge2e_loss(embeds, sim["weight"], sim["bias"])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        multihost.average_gradients(leaves)
         for p in sim.parameters():
             p.grad.mul_(0.01)
         clip_by_global_norm([p.grad for p in leaves], 3.0)
@@ -90,8 +99,11 @@ def train(run_id: str, clean_data_root: Path, models_dir: Path,
     ``save_every`` steps and at ``total_steps``, logs every ``log_every``,
     projection PNGs under ``umap/`` every ``vis_every``; at the end writes
     ``encoder.npz``. ``remat`` defaults to on at 4096 partials a batch or
-    more, as in the JAX trainer. Returns ``init_params``' tree, trained."""
-    dev = resolve_device(device)
+    more, as in the JAX trainer. Returns ``init_params``' tree, trained.
+    Data parallel under the ``MB_*`` environment (``parallel.multihost``):
+    ``speakers_per_batch`` is the global batch, split across the ranks."""
+    multihost.initialize_from_env(device)
+    dev = multihost.rank_device(resolve_device(device))
     dataset = SpeakerVerificationDataset(Path(clean_data_root))
     sampler = SpeakerBatchSampler(dataset, speakers_per_batch, utterances_per_speaker,
                                   PARTIALS_N_FRAMES, seed=seed)
@@ -111,17 +123,19 @@ def train(run_id: str, clean_data_root: Path, models_dir: Path,
             opt.load_state_dict(state["opt"])
             init_step = step0 + 1
             print(f"Resumed encoder run {run_id} at step {step0}")
+    multihost.make_global(params, opt)
     step_fn = make_train_step(params, opt, speakers_per_batch, utterances_per_speaker,
                               precision)
 
     vis_dir = model_dir / "umap"
     t0, losses, eers = time.time(), [], []
     for step, batch in enumerate(sampler, init_step):
+        batch = multihost.shard_global_batch(batch)
         loss, eer, embeds = step_fn(torch.from_numpy(batch).to(dev))
         losses.append(loss)
         eers.append(eer)
 
-        if vis_every and step % vis_every == 0:
+        if vis_every and step % vis_every == 0 and multihost.is_primary():
             if have_matplotlib():
                 vis_dir.mkdir(parents=True, exist_ok=True)
                 draw_projections(embeds.reshape(-1, embeds.shape[-1]).cpu().numpy(),
@@ -140,10 +154,14 @@ def train(run_id: str, clean_data_root: Path, models_dir: Path,
         saved = save_every and step % save_every == 0
         if saved:
             ckpt.save(step, {"params": params.state_dict(), "opt": opt.state_dict()})
+            multihost.barrier()
         if total_steps is not None and step >= total_steps:
             if not saved:
                 ckpt.save(step, {"params": params.state_dict(), "opt": opt.state_dict()},
                           force=True)
+                multihost.barrier()
             break
-    save_npz(model_dir / "encoder.npz", to_flax(params))
+    if multihost.is_primary():
+        save_npz(model_dir / "encoder.npz", to_flax(params))
+    multihost.barrier()
     return params

@@ -28,6 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import multihost
+
 
 class FusedGRUCell(nn.Module):
     """One GRU step as two matmuls: ``wi`` = [ir|iz|in] (+ input biases),
@@ -180,15 +182,16 @@ class LSTMCell(nn.Module):
 
 
 def dropout(x: torch.Tensor, p: float, generator=None,
-            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+            keep: Optional[torch.Tensor] = None, batch_dim: int = 0) -> torch.Tensor:
     """Dropout drawn from an explicit ``torch.Generator`` (the port's stand-in
     for a ``jax.random`` key), or with the keep mask ``keep`` handed in;
     flax semantics: keep with 1-p and scale by 1/(1-p). Active whenever a
-    generator or a mask is passed."""
+    generator or a mask is passed. In a data-parallel step the mask is drawn
+    at the global batch's shape along ``batch_dim`` (``multihost.rand``)."""
     if p == 0.0 or (generator is None and keep is None):
         return x
     if keep is None:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+        keep = multihost.rand(x.shape, generator, x.device, batch_dim=batch_dim) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -200,8 +203,8 @@ class Dropout(nn.Module):
         self.p = p
 
     def forward(self, x: torch.Tensor, generator=None,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return dropout(x, self.p, generator, keep)
+                keep: Optional[torch.Tensor] = None, batch_dim: int = 0) -> torch.Tensor:
+        return dropout(x, self.p, generator, keep, batch_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +274,9 @@ class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
     statistics rounded to the parameters' dtype, as the JAX step under a
     bf16 policy casts its ``batch_stats``, multiplies them by 0.9 in that
     dtype, and writes the float32 result back into the buffers. The output is in the promoted dtype of the input
-    and the parameters."""
+    and the parameters. In a data-parallel step (``multihost.sharded``) the
+    mean and E[x²] are those of the global batch, all-reduced over the ranks
+    with their gradient, as under the JAX package's mesh."""
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         pass
@@ -283,8 +288,10 @@ class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
         xf = x.to(cdt)
         if self.training:
             dims = [0] + list(range(2, x.ndim))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            # in a data-parallel step, the statistics of the global batch
+            mean = multihost.all_reduce_mean(xf.mean(dims))
+            var = torch.clamp(multihost.all_reduce_mean((xf * xf).mean(dims)) - mean * mean,
+                              min=0.0)
             # the momentum in the parameters' dtype (bf16: 0.8984375), as
             # JAX casts the Python scalar that multiplies the rounded stats
             momentum = torch.tensor(0.9, dtype=self.weight.dtype)

@@ -19,8 +19,11 @@ Validation (``make_vc_val_fn``) runs in eval mode, as JAX's ``train=False``;
 the prenet's dropout, which is on at inference too, still draws there: JAX
 passes ``PRNGKey(0)``, the port a fixed ``Generator`` seeded with 0.
 
-Single process: the JAX trainer's mesh and ``multihost`` calls wait for the
-port's data parallelism.
+Data parallel across processes (``parallel.multihost``): every rank builds
+the same global batch and takes its rows; the dropout draws, the postnet's
+BatchNorm statistics and the masked MSE's count are the global batch's; the
+gradients are averaged over ranks before the clip; rank 0 alone validates,
+logs and checkpoints.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import torch
 
 from ... import resolve_device, seeded
 from ...config import Config
+from ...parallel import multihost
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.optim import adamw, clip_by_global_norm, warmup_cosine_decay
@@ -98,7 +102,8 @@ def collate_vc(batch, frames_per_step: int = 2, down: int = 4, bucket: int = 64)
 
 
 def masked_mse(pred, target, mask):
-    return torch.sum(((pred - target) ** 2) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return (torch.sum(((pred - target) ** 2) * mask)
+            / multihost.global_count(torch.sum(mask), minimum=1.0))
 
 
 def mel_loss(out, batch):
@@ -138,16 +143,20 @@ def make_vc_step(model: MelDecoderMOLv2, opt: torch.optim.Optimizer, scheduler,
     params = list(model.parameters())
 
     def step(batch, generator=None, masks=None):
-        out = policy.apply(model, batch["ppgs"], batch["lengths"], batch["mels"],
-                           batch["lengths"], batch["lf0s"], batch["embeds"],
-                           generator=generator, masks=masks)
-        loss, l_mel, l_stop = vc_loss(out, batch)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with multihost.sharded():
+            out = policy.apply(model, batch["ppgs"], batch["lengths"], batch["mels"],
+                               batch["lengths"], batch["lf0s"], batch["embeds"],
+                               generator=generator, masks=masks)
+            loss, l_mel, l_stop = vc_loss(out, batch)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        multihost.average_gradients(params)
         clip_by_global_norm([p.grad for p in params], 5.0)
         opt.step()
         scheduler.step()
-        return loss.detach(), l_mel.detach(), l_stop.detach()
+        losses = multihost.mean_over_ranks(
+            torch.stack([t.detach().float() for t in (loss, l_mel, l_stop)]))
+        return losses[0], losses[1], losses[2]
 
     return step
 
@@ -185,8 +194,11 @@ def train(run_id: str, vc_dir: Path, models_dir: Path, cfg=None,
     split (when ``dev_fidlist.txt`` exists) is scored on up to 4 batches,
     its first attention map drawn under ``attn/``, and the best dev loss
     checkpointed under ``ckpt_ppg2mel_best``; checkpoints every
-    ``save_every`` steps and at the end."""
-    dev = resolve_device(device)
+    ``save_every`` steps and at the end. Data parallel under the ``MB_*``
+    environment (``parallel.multihost``): ``batch_size`` is the global
+    batch, split across the ranks."""
+    multihost.initialize_from_env(device)
+    dev = multihost.rank_device(resolve_device(device))
     cfg = Config(ppg2mel_config()).merge(cfg or {})
     with seeded(seed):
         model = MelDecoderMOLv2(cfg)
@@ -204,6 +216,7 @@ def train(run_id: str, vc_dir: Path, models_dir: Path, cfg=None,
         sched.load_state_dict(state["sched"])
         step = step0 + 1
         print(f"Resumed ppg2mel at step {step0}")
+    multihost.make_global(model, opt)
 
     def state_now():
         return {"model": model.state_dict(), "opt": opt.state_dict(),
@@ -254,6 +267,7 @@ def train(run_id: str, vc_dir: Path, models_dir: Path, cfg=None,
     done = False
     while not done:
         for batch in loader:
+            batch = multihost.shard_global_batch(batch)
             loss, l_mel, _ = step_fn(to_device(batch, dev), step_generator(seed, step, dev))
             acc.append(torch.stack([loss, l_mel]))
             if step % log_every == 0:
@@ -263,13 +277,15 @@ def train(run_id: str, vc_dir: Path, models_dir: Path, cfg=None,
                 tb.scalars(step, **{"train/loss": l, "train/mel": m,
                                     "train/ms_per_step": dt * 1000})
                 t0, acc = time.time(), []
-            if val_every and step % val_every == 0:
+            if val_every and step % val_every == 0 and multihost.is_primary():
                 validate(step)
             if save_every and step % save_every == 0:
                 ckpt.save(step, state_now())
+                multihost.barrier()
             step += 1
             if total_steps and step > total_steps:
                 done = True
                 break
     ckpt.save(step, state_now(), force=True)
+    multihost.barrier()
     return model

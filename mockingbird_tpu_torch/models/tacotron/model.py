@@ -40,6 +40,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ...config import Config
+from ...parallel import multihost
 from ..layers import (Dense, Dropout, FlaxBatchNorm, FusedGRUCell, GRULayer, LSTMCell,
                       promote, with_bias)
 
@@ -156,9 +157,9 @@ class PreNet(nn.Module):
         self.fc2 = Dense(fc1_dims, fc2_dims)
         self.drop = Dropout(dropout if enabled else 0.0)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        x = self.drop(torch.relu(self.fc1(x)), generator)
-        return self.drop(torch.relu(self.fc2(x)), generator)
+    def forward(self, x, generator: Optional[torch.Generator] = None, batch_dim: int = 0):
+        x = self.drop(torch.relu(self.fc1(x)), generator, batch_dim=batch_dim)
+        return self.drop(torch.relu(self.fc2(x)), generator, batch_dim=batch_dim)
 
 
 class TacotronEncoder(nn.Module):
@@ -438,12 +439,13 @@ class Tacotron(nn.Module):
         # float32, as in the JAX package, and promotes the decoder
         go_frame = torch.zeros((b, 1, m), device=dev)
         prenet_ins = torch.cat([go_frame, mels[:, r - 1::r, :][:, : steps - 1]], dim=1)
-        prenet_outs = self.decoder.prenet(prenet_ins.transpose(0, 1), generator)  # (S, B, P)
+        prenet_outs = self.decoder.prenet(prenet_ins.transpose(0, 1), generator,
+                                          batch_dim=1)                        # (S, B, P)
         if not self.training:
             zo_masks = None
         elif zo_masks is None:
-            zo_masks = torch.rand((steps, 2, b, c.lstm_dims), generator=generator,
-                                  device=dev) < 0.1
+            zo_masks = multihost.rand((steps, 2, b, c.lstm_dims), generator, dev,
+                                      batch_dim=2) < 0.1
 
         # the float32 carries promote every product of the recurrence to
         # float32: under a bf16 policy the decoder's weights (and the LSA's

@@ -21,8 +21,13 @@ As in the JAX package:
   * under bf16 the running BatchNorm statistics are read rounded to bf16
     and written back in f32 (``layers.FlaxBatchNorm``).
 
-Single process: the mesh, ``shard_batch`` and ``multihost`` of the JAX
-trainer wait for the port's data parallelism. Eval artifacts are the
+Data parallel across processes (``parallel.multihost``): every rank builds
+the same global batch and takes its rows (the session's batch size rounded
+down to a multiple of the ranks, as the JAX trainer rounds it to the data
+axis); the dropout and zoneout draws, the BatchNorm statistics and the
+guided-attention count are the global batch's; the gradients are averaged
+over ranks before the clip; rank 0 alone logs, checkpoints and writes the
+eval artifacts. Eval artifacts are the
 attention ``.npz``, the predicted mel ``.npy`` and its Griffin-Lim wav; the
 JAX trainer's matplotlib PNGs are left out.
 """
@@ -40,6 +45,7 @@ import torch
 from ... import resolve_device, seeded
 from ...config import Config, sv2tts_audio_config
 from ...dsp import inv_mel_spectrogram, save_wav
+from ...parallel import multihost
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.optim import clip_by_global_norm
@@ -82,7 +88,7 @@ def guided_attention_loss(attn, text_lengths, mel_lengths, r: int, g: float = 0.
     tn = t_idx / torch.clamp(tl[:, None, None], min=1.0)
     w = 1.0 - torch.exp(-((tn - sn) ** 2) / (2.0 * g * g))
     mask = (s_idx < steps[:, None, None]) & (t_idx < tl[:, None, None])
-    return torch.sum(attn * w * mask) / torch.clamp(torch.sum(steps), min=1.0)
+    return torch.sum(attn * w * mask) / multihost.global_count(torch.sum(steps), minimum=1.0)
 
 
 def finetune_mask(model: torch.nn.Module, layers: Sequence[str]) -> dict:
@@ -127,21 +133,24 @@ def make_train_step(model: Tacotron, opt: torch.optim.Optimizer, r: int,
     frozen = [p for name, p in model.named_parameters() if not trainable[name]]
 
     def step(batch, generator, zo_masks=None):
-        loss, parts, out = loss_of(model, batch, r, policy, generator, zo_masks,
-                                   guided_attn_weight, guided_attn_g)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with multihost.sharded():
+            loss, parts, out = loss_of(model, batch, r, policy, generator, zo_masks,
+                                       guided_attn_weight, guided_attn_g)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        multihost.average_gradients(params)
         clip_by_global_norm([p.grad for p in params], 1.0)
         kept = [p.detach().clone() for p in frozen]
         opt.step()
         with torch.no_grad():
             for p, k in zip(frozen, kept):
                 p.copy_(k)
-        return (loss.detach(), {k: v.detach() for k, v in parts.items()},
-                out[2].detach(), out[1].detach())
+        losses = multihost.mean_over_ranks(
+            torch.stack([t.detach().float() for t in (loss, *parts.values())]))
+        return losses[0], dict(zip(parts, losses[1:])), out[2].detach(), out[1].detach()
 
     return step
 
@@ -162,8 +171,10 @@ def train(run_id: str, syn_dir: Path, models_dir: Path,
     ``seed``, or resume the newest checkpoint under
     ``models_dir/run_id/ckpt`` (unless ``force_restart``); saves every
     ``save_every`` steps and at the end, eval artifacts every
-    ``eval_every`` steps under ``models_dir/run_id/eval``."""
-    dev = resolve_device(device)
+    ``eval_every`` steps under ``models_dir/run_id/eval``. Data parallel
+    under the ``MB_*`` environment (``parallel.multihost``)."""
+    multihost.initialize_from_env(device)
+    dev = multihost.rank_device(resolve_device(device))
     syn_dir = Path(syn_dir)
     cfg = Config(tacotron_config()).merge(cfg or {})
     audio_cfg = audio_cfg or sv2tts_audio_config()
@@ -174,7 +185,8 @@ def train(run_id: str, syn_dir: Path, models_dir: Path,
 
     model_dir = Path(models_dir) / run_id
     model_dir.mkdir(parents=True, exist_ok=True)
-    (model_dir / "config.json").write_text(json.dumps(cfg.to_dict(), indent=2))
+    if multihost.is_primary():
+        (model_dir / "config.json").write_text(json.dumps(cfg.to_dict(), indent=2))
     ckpt = CheckpointManager(model_dir / "ckpt", backup_every=backup_every)
     tb = TrainLogger(model_dir / "logs")
     eval_dir = model_dir / "eval"
@@ -197,7 +209,11 @@ def train(run_id: str, syn_dir: Path, models_dir: Path,
                 print(f"Resumed {run_id} at step {step0}")
             if step >= max_step:
                 continue
+        multihost.make_global(model, opt)
 
+        n_proc = multihost.process_count()
+        if batch_size % n_proc:
+            batch_size = max(n_proc, batch_size - batch_size % n_proc)
         loader = DataLoader(dataset, batch_size,
                             partial(collate_synthesizer, r=r,
                                     max_abs_value=audio_cfg.max_abs_value), seed=seed)
@@ -211,6 +227,7 @@ def train(run_id: str, syn_dir: Path, models_dir: Path,
         done = False
         while not done:
             for batch in loader:
+                batch = multihost.shard_global_batch(batch)
                 loss, parts, attn, post = step_fn(to_device(batch, dev),
                                                   step_generator(seed, step, dev))
                 loss_acc.append(float(loss))
@@ -225,7 +242,8 @@ def train(run_id: str, syn_dir: Path, models_dir: Path,
                     t0, loss_acc = time.time(), []
                 if save_every and step % save_every == 0:
                     ckpt.save(step, {"model": model.state_dict(), "opt": opt.state_dict()})
-                if eval_every and step % eval_every == 0:
+                    multihost.barrier()
+                if eval_every and step % eval_every == 0 and multihost.is_primary():
                     _save_eval_artifacts(eval_dir, step, batch, attn, post, audio_cfg, tb,
                                          float(loss))
                 step += 1
@@ -237,6 +255,7 @@ def train(run_id: str, syn_dir: Path, models_dir: Path,
 
     if opt is not None:
         ckpt.save(step, {"model": model.state_dict(), "opt": opt.state_dict()}, force=True)
+        multihost.barrier()
     return model
 
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ... import seeded
 from ...config import Config
 from ...ops.monotonic_align import maximum_path
+from ...parallel import multihost
 from ...text import symbols as _symbols
 from ..layers import Conv1d, ConvTranspose1d, Dense, LayerNorm, dropout
 from ..vocoder.hifigan import LRELU_SLOPE, ResBlock1, ResBlock2, upsample_valid
@@ -240,8 +241,7 @@ class StochasticDurationPredictor(nn.Module):
         x = self.convs(x, x_mask, gen=gen)
         x = self.proj(x) * x_mask
         if noise is None:
-            noise = torch.randn(x.shape[0], x.shape[1], 2, generator=generator,
-                                device=x.device)
+            noise = multihost.randn((x.shape[0], x.shape[1], 2), generator, x.device)
 
         if not reverse:
             h_w = self.post_pre(w)
@@ -317,8 +317,8 @@ class Vits(nn.Module):
         hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, emo, gen)
         g = self._speaker(sid)
         if eps is None:
-            eps = torch.randn(y.shape[0], y.shape[1], c.inter_channels, generator=generator,
-                              device=y.device)
+            eps = multihost.randn((y.shape[0], y.shape[1], c.inter_channels), generator,
+                                  y.device)
         z, m_q, logs_q, y_mask = self.enc_q(y, y_lengths, g=g, eps=eps, gen=gen)
         z_p = self.flow(z, y_mask, g=g, gen=gen)
 
@@ -330,11 +330,12 @@ class Vits(nn.Module):
         w = torch.sum(attn, dim=1)[..., None]                        # (B, Tx, 1)
         if c.use_sdp:
             l_length = self.dp(hx, x_mask, w, g=g, noise=e_q, gen=gen, generator=generator)
-            l_length = l_length / torch.sum(x_mask)
+            l_length = l_length / multihost.global_count(torch.sum(x_mask))
         else:
             logw_ = torch.log(w + 1e-6) * x_mask
             logw = self.dp(hx, x_mask, g=g, gen=gen)
-            l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) / torch.sum(x_mask)
+            l_length = (torch.sum((logw - logw_) ** 2, dim=(1, 2))
+                        / multihost.global_count(torch.sum(x_mask)))
 
         m_p = torch.einsum("byx,bxd->byd", attn, m_p)
         logs_p = torch.einsum("byx,bxd->byd", attn, logs_p)

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel import multihost
 from ..layers import Conv1d, LayerNorm, dropout, promote
 
 
@@ -412,7 +413,7 @@ def rand_slice_segments(x, x_lengths, segment_size: int, generator=None, ids_str
     be handed in, else drawn uniformly from ``generator``."""
     if ids_str is None:
         max_start = torch.clamp(x_lengths - segment_size + 1, min=1)
-        u = torch.rand(x.shape[0], generator=generator, device=x.device)
+        u = multihost.rand((x.shape[0],), generator, x.device)
         ids_str = (u * max_start).to(torch.int32)
     return slice_segments(x, ids_str, segment_size), ids_str
 

@@ -5,7 +5,13 @@ Port of ``mockingbird_tpu/models/vits/train.py``: two AdamW optimizers
 weight decay 1e-4 as ``optax.adamw`` has it), the losses disc-LSGAN + gen
 (adversarial + feature matching + mel L1×45 + KL×1 + duration), G/D
 checkpoints, length-bucketed batches with static padded shapes, and the
-bf16 ``Policy``. Single process.
+bf16 ``Policy``.
+
+Data parallel across processes (``parallel.multihost``): each rank loads
+its own rows of every global batch (``BucketBatcher(num_shards,
+shard_index)``, ``batch_size`` per rank), the step's draws, KL and duration
+counts are the global batch's, the gradients are averaged over ranks before
+each update, and rank 0 alone evaluates, logs and checkpoints.
 
 One difference by design: the JAX step runs the generator forward twice,
 once for the discriminator and once inside the generator's loss, with the
@@ -14,6 +20,7 @@ the alignment search (the MAS kernel on the card) runs once per step.
 """
 from __future__ import annotations
 
+import os
 import random
 import time
 from pathlib import Path
@@ -27,6 +34,7 @@ from ... import resolve_device, seeded
 from ...config import Config
 from ...dsp import spec_to_mel_vits, spectrogram_vits
 from ...text import text_to_sequence
+from ...parallel import multihost
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.precision import Policy
@@ -107,7 +115,11 @@ class VitsDataset:
             with torch.no_grad():
                 spec = spectrogram_vits(torch.from_numpy(wav), self.cfg.n_fft,
                                         self.cfg.hop_size, self.cfg.win_size).numpy()
-            np.save(spec_path, spec)
+            # atomically: the ranks of a data-parallel run may cache it at once
+            tmp = spec_path.with_name(f"{spec_path.name}.{os.getpid()}.tmp")
+            with tmp.open("wb") as f:
+                np.save(f, spec)
+            os.replace(tmp, spec_path)
         emo_path = self.emo_dir / f"emo-{wav_fname.split('-', 1)[-1]}"
         if emo_path.exists():
             emo = np.load(emo_path).astype(np.float32)
@@ -125,14 +137,21 @@ class BucketBatcher:
     """Length-bucketed batches with static padded shapes: spec pad = the
     bucket's upper boundary, text pad = ``max(32, ceil16(longest text))``
     of the bucket. Shuffles with ``random.Random(seed)``, as the JAX
-    batcher does, so both give the same batches."""
+    batcher does, so both give the same batches.
+
+    Multi-process: ``num_shards``/``shard_index`` give each rank a strided
+    subsample of every global batch of ``batch_size · num_shards`` rows (the
+    reference's ``DistributedBucketSampler``); ``batch_size`` is then the
+    per-rank size, and every rank collates the same shapes."""
 
     def __init__(self, dataset: VitsDataset, batch_size: int, boundaries=BUCKET_BOUNDARIES,
-                 seed: int = 1234):
+                 seed: int = 1234, num_shards: int = 1, shard_index: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.boundaries = list(boundaries)
         self.rng = random.Random(seed)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         buckets: List[List[int]] = [[] for _ in range(len(self.boundaries) - 1)]
         for idx, length in enumerate(dataset.lengths):
             for bi in range(len(self.boundaries) - 1):
@@ -149,18 +168,21 @@ class BucketBatcher:
             for b in self.buckets]
 
     def __iter__(self):
+        gbs = self.batch_size * self.num_shards
         batches = []
         for bi, bucket in enumerate(self.buckets):
             order = bucket[:]
             self.rng.shuffle(order)
-            for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
-                batches.append((bi, order[i:i + self.batch_size]))
+            for i in range(0, len(order) - gbs + 1, gbs):
+                batches.append((bi, order[i:i + gbs]))
         self.rng.shuffle(batches)
         for bi, idxs in batches:
-            yield self.collate([self.dataset[i] for i in idxs], bi)
+            local = idxs[self.shard_index::self.num_shards]      # rank-strided
+            yield self.collate([self.dataset[i] for i in local], bi)
 
     def __len__(self):
-        return sum(len(b) // self.batch_size for b in self.buckets)
+        gbs = self.batch_size * self.num_shards
+        return sum(len(b) // gbs for b in self.buckets)
 
     def collate(self, batch, bucket_idx: int) -> dict:
         cfg = self.dataset.cfg
@@ -240,34 +262,45 @@ def set_lr(opt: torch.optim.Optimizer) -> float:
 def make_vits_step(model, disc, opt_g, opt_d, cfg, precision: str = "fp32"):
     """One training step ``step(batch, generator)`` → (g_loss, d_loss,
     parts), tensors on the device. ``batch`` is ``to_device`` of a collated
-    batch; ``generator`` draws the dropout and the model's noise."""
+    batch; ``generator`` draws the dropout and the model's noise. In a
+    multi-process run ``batch`` is this rank's rows of the global batch
+    as ``BucketBatcher(num_shards, shard_index)`` deals them (rows ``rank,
+    rank + world, ...``: ``multihost.sharded(strided=True)``), each gradient
+    is averaged over ranks before its update, and the losses returned are
+    the global batch's."""
     policy = Policy.from_name(precision)
     g_params = list(model.parameters())
+    d_params = list(disc.parameters())
 
     def disc_fn(y_r, y_g):
         return policy.apply(disc, y_r, y_g)
 
     def step(batch, generator):
-        mel_full = spec_to_mel_vits(batch["specs"], cfg.sample_rate, cfg.n_fft, cfg.num_mels,
-                                    cfg.fmin, cfg.fmax)
-        out = policy.apply(model, batch["texts"], batch["text_lengths"], batch["specs"],
-                           batch["spec_lengths"], batch["sids"], batch["emos"], train=True,
-                           generator=generator)
-        y_hat, ids = out[0], out[3]
-        y = slice_segments(batch["wavs"], ids * cfg.hop_size, cfg.segment_size)
+        with multihost.sharded(strided=True):
+            mel_full = spec_to_mel_vits(batch["specs"], cfg.sample_rate, cfg.n_fft,
+                                        cfg.num_mels, cfg.fmin, cfg.fmax)
+            out = policy.apply(model, batch["texts"], batch["text_lengths"], batch["specs"],
+                               batch["spec_lengths"], batch["sids"], batch["emos"],
+                               train=True, generator=generator)
+            y_hat, ids = out[0], out[3]
+            y = slice_segments(batch["wavs"], ids * cfg.hop_size, cfg.segment_size)
 
-        d_loss = d_loss_of(disc_fn(y, y_hat.detach()))
-        opt_d.zero_grad(set_to_none=True)
-        d_loss.backward()
-        set_lr(opt_d)
-        opt_d.step()
+            d_loss = d_loss_of(disc_fn(y, y_hat.detach()))
+            opt_d.zero_grad(set_to_none=True)
+            d_loss.backward()
+            multihost.average_gradients(d_params)
+            set_lr(opt_d)
+            opt_d.step()
 
-        g_loss, parts = g_loss_of(cfg, out, batch, mel_full, disc_fn)
-        opt_g.zero_grad(set_to_none=True)
-        g_loss.backward(inputs=g_params)
-        set_lr(opt_g)
-        opt_g.step()
-        return g_loss.detach(), d_loss.detach(), {k: v.detach() for k, v in parts.items()}
+            g_loss, parts = g_loss_of(cfg, out, batch, mel_full, disc_fn)
+            opt_g.zero_grad(set_to_none=True)
+            g_loss.backward(inputs=g_params)
+            multihost.average_gradients(g_params)
+            set_lr(opt_g)
+            opt_g.step()
+        losses = multihost.mean_over_ranks(
+            torch.stack([t.detach().float() for t in (g_loss, d_loss, *parts.values())]))
+        return losses[0], losses[1], dict(zip(parts, losses[2:]))
 
     return step
 
@@ -278,8 +311,11 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, cfg=None, batch_size: in
           device: Union[str, torch.device] = "cuda"):
     """Train VITS on ``syn_dir`` from weights made from ``seed`` (or resume
     the newest checkpoint under ``models_dir/run_id/ckpt_vits``); saves at
-    every ``save_every`` steps (0: never) and at the end."""
-    dev = resolve_device(device)
+    every ``save_every`` steps (0: never) and at the end. Data parallel
+    under the ``MB_*`` environment (``parallel.multihost``), ``batch_size``
+    rows per rank."""
+    multihost.initialize_from_env(device)
+    dev = multihost.rank_device(resolve_device(device))
     cfg = Config(vits_config()).merge(cfg or {})
     dataset = VitsDataset(syn_dir, cfg)
     cfg.n_speakers = max(cfg.n_speakers, dataset.n_speakers)
@@ -300,12 +336,15 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, cfg=None, batch_size: in
         opt_d.load_state_dict(restored["d_opt"])
         step = step0 + 1
         print(f"Resumed VITS at step {step0}")
+    multihost.make_global(model, disc, opt_g, opt_d)
 
     def state():
         return {"g": model.state_dict(), "d": disc.state_dict(),
                 "g_opt": opt_g.state_dict(), "d_opt": opt_d.state_dict()}
 
-    batcher = BucketBatcher(dataset, batch_size, seed=seed)
+    batcher = BucketBatcher(dataset, batch_size, seed=seed,
+                            num_shards=multihost.process_count(),
+                            shard_index=multihost.process_index())
     step_fn = make_vits_step(model, disc, opt_g, opt_d, cfg, precision)
 
     def evaluate(step):
@@ -339,6 +378,7 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, cfg=None, batch_size: in
         n_batches = 0
         for batch in batcher:
             n_batches += 1
+            batch = multihost.assemble_local_batch(batch)
             g_loss, d_loss, parts = step_fn(to_device(batch, dev), generator)
             acc.append((float(g_loss), float(d_loss), float(parts["mel"])))
             if step % log_every == 0:
@@ -351,10 +391,11 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, cfg=None, batch_size: in
                                     "train/kl": float(parts["kl"]),
                                     "train/ms_per_step": dt * 1000})
                 t0, acc = time.time(), []
-            if eval_every and step % eval_every == 0:
+            if eval_every and step % eval_every == 0 and multihost.is_primary():
                 evaluate(step)
             if save_every and step % save_every == 0:
                 ckpt.save(step, state())
+                multihost.barrier()
             step += 1
             if total_steps and step > total_steps:
                 done = True
@@ -363,4 +404,5 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, cfg=None, batch_size: in
             raise RuntimeError("no full batches; reduce batch_size")
 
     ckpt.save(step, state())
+    multihost.barrier()
     return model, disc

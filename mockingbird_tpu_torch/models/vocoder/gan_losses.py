@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ...dsp.stft import stft
+from ...parallel import multihost
 
 
 def feature_loss(fmap_r, fmap_g):
@@ -58,8 +59,11 @@ def stft_loss(x, y, fft_size, hop, win_length):
     ground truth ``y``, both (B, T), at one resolution."""
     x_mag = _stft_mag(x, fft_size, hop, win_length)
     y_mag = _stft_mag(y, fft_size, hop, win_length)
-    sc = torch.linalg.vector_norm(y_mag - x_mag) / torch.clamp(
-        torch.linalg.vector_norm(y_mag), min=1e-7)
+    num, den = torch.linalg.vector_norm(y_mag - x_mag), torch.linalg.vector_norm(y_mag)
+    if multihost.active():   # a data-parallel step: the global batch's norms
+        num = torch.sqrt(multihost.all_reduce_sum(num * num))
+        den = torch.sqrt(multihost.all_reduce_sum(den * den))
+    sc = num / torch.clamp(den, min=1e-7)
     mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
     return sc, mag
 
@@ -80,4 +84,4 @@ def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
     z_p, logs_q, m_p, logs_p = (a.float() for a in (z_p, logs_q, m_p, logs_p))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / multihost.global_count(torch.sum(z_mask))

@@ -15,9 +15,12 @@ One step: the discriminators update on (y, ŷ.detach()) with ``train=True``
 with the updated parameters and statistics and ``train=False`` (the power
 iteration runs, nothing is stored). One difference by design: the JAX step
 runs the generator forward twice, outside and inside its loss, on the same
-parameters; this step runs it once and reuses it. Single process: the mesh
-and multihost paths of the JAX trainer wait for the port's data
-parallelism.
+parameters; this step runs it once and reuses it.
+
+Data parallel across processes (``parallel.multihost``): every rank builds
+the same global batch and takes its rows, each gradient is averaged over
+ranks before its update (the STFT loss's norms are the global batch's),
+and rank 0 alone validates, logs and checkpoints.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from ... import resolve_device, seeded
 from ...config import Config
 from ...dsp import spec_to_mel_vits, spectrogram_vits
+from ...parallel import multihost
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.precision import Policy
@@ -88,36 +92,44 @@ def make_gan_step(gen, disc, opt_g, opt_d, cfg, precision: str = "fp32"):
     policy = Policy.from_name(precision)
     schedule = _lr_schedule(cfg)
     g_params = list(gen.parameters())
+    d_params = list(disc.parameters())
 
     def step(batch, disc_active: bool = True):
         mels, y = batch["mels"], batch["wavs"]
-        y_hat = policy.apply(gen, mels)
+        with multihost.sharded():
+            y_hat = policy.apply(gen, mels)
 
-        if disc_active:
-            mpd, msd = policy.apply(disc, y, y_hat.detach(), True)
-            d_loss = discriminator_loss(mpd[0], mpd[1])[0] + discriminator_loss(msd[0], msd[1])[0]
-            opt_d.zero_grad(set_to_none=True)
-            d_loss.backward()
-            set_lr(opt_d, schedule)
-            opt_d.step()
-        else:
-            d_loss = torch.zeros((), device=y.device)
+            if disc_active:
+                mpd, msd = policy.apply(disc, y, y_hat.detach(), True)
+                d_loss = (discriminator_loss(mpd[0], mpd[1])[0]
+                          + discriminator_loss(msd[0], msd[1])[0])
+                opt_d.zero_grad(set_to_none=True)
+                d_loss.backward()
+                multihost.average_gradients(d_params)
+                set_lr(opt_d, schedule)
+                opt_d.step()
+            else:
+                d_loss = torch.zeros((), device=y.device)
 
-        if cfg.get("use_stft_loss", False):
-            sc, mag = multi_resolution_stft_loss(y_hat, y)
-            loss_mel = cfg.get("lambda_aux", 45.0) * (sc + mag)
-        else:
-            loss_mel = torch.mean(torch.abs(mel_loss_fn(y, cfg) - mel_loss_fn(y_hat, cfg))) * C_MEL
-        g_loss = loss_mel
-        if disc_active:
-            mpd, msd = policy.apply(disc, y, y_hat, False)
-            g_loss = (loss_mel + feature_loss(mpd[2], mpd[3]) + feature_loss(msd[2], msd[3])
-                      + generator_loss(mpd[1])[0] + generator_loss(msd[1])[0])
-        opt_g.zero_grad(set_to_none=True)
-        g_loss.backward(inputs=g_params)
-        set_lr(opt_g, schedule)
-        opt_g.step()
-        return g_loss.detach(), d_loss.detach(), loss_mel.detach()
+            if cfg.get("use_stft_loss", False):
+                sc, mag = multi_resolution_stft_loss(y_hat, y)
+                loss_mel = cfg.get("lambda_aux", 45.0) * (sc + mag)
+            else:
+                loss_mel = torch.mean(torch.abs(mel_loss_fn(y, cfg)
+                                                - mel_loss_fn(y_hat, cfg))) * C_MEL
+            g_loss = loss_mel
+            if disc_active:
+                mpd, msd = policy.apply(disc, y, y_hat, False)
+                g_loss = (loss_mel + feature_loss(mpd[2], mpd[3]) + feature_loss(msd[2], msd[3])
+                          + generator_loss(mpd[1])[0] + generator_loss(msd[1])[0])
+            opt_g.zero_grad(set_to_none=True)
+            g_loss.backward(inputs=g_params)
+            multihost.average_gradients(g_params)
+            set_lr(opt_g, schedule)
+            opt_g.step()
+        losses = multihost.mean_over_ranks(
+            torch.stack([t.detach().float() for t in (g_loss, d_loss, loss_mel)]))
+        return losses[0], losses[1], losses[2]
 
     return step
 
@@ -132,8 +144,11 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, arch: str = "hifigan",
     from ``seed``, or resume the newest checkpoint under
     ``models_dir/run_id/ckpt_<arch>``; validates every ``val_every`` steps,
     saves every ``save_every`` steps (0: never) and at the end. Returns
-    (generator, discriminators)."""
-    dev = resolve_device(device)
+    (generator, discriminators). Data parallel under the ``MB_*``
+    environment (``parallel.multihost``): ``cfg.batch_size`` is the global
+    batch, split across the ranks."""
+    multihost.initialize_from_env(device)
+    dev = multihost.rank_device(resolve_device(device))
     gen_cls, disc_cls, cfg_fn = ARCHS[arch]
     cfg = Config(cfg_fn()).merge(cfg or {})
     with seeded(seed):
@@ -154,6 +169,7 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, arch: str = "hifigan",
         opt_d.load_state_dict(restored["d_opt"])
         step = step0 + 1
         print(f"Resumed {arch} at step {step0}")
+    multihost.make_global(gen, disc, opt_g, opt_d)
 
     def state():
         return {"g": gen.state_dict(), "d": disc.state_dict(),
@@ -191,6 +207,7 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, arch: str = "hifigan",
     done = False
     while not done:
         for batch in loader:
+            batch = multihost.shard_global_batch(batch)
             g_loss, d_loss, mel_l = step_fn(to_device(batch, dev),
                                             disc_active=step >= cfg.disc_start_step)
             accs.append((float(g_loss), float(d_loss), float(mel_l)))
@@ -202,10 +219,11 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, arch: str = "hifigan",
                 tb.scalars(step, **{"train/gen": g, "train/disc": d, "train/mel": ml / C_MEL,
                                     "train/ms_per_step": dt * 1000})
                 t0, accs = time.time(), []
-            if val_every and step % val_every == 0:
+            if val_every and step % val_every == 0 and multihost.is_primary():
                 validate(step)
             if save_every and step % save_every == 0:
                 ckpt.save(step, state())
+                multihost.barrier()
             step += 1
             if total_steps and step > total_steps:
                 done = True
@@ -214,4 +232,5 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, arch: str = "hifigan",
             raise RuntimeError("dataset smaller than one batch")
 
     ckpt.save(step, state(), force=True)
+    multihost.barrier()
     return gen, disc

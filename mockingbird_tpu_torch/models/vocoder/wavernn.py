@@ -319,12 +319,18 @@ class WaveRnnVocoder:
                 greedy: bool) -> np.ndarray:
         """mel_bp (B, T+2p, M) → labels (B, folds, width): upsample → fold
         on the device → the sampler; only the labels come back."""
+        mels_f, aux_f = self._fold(mel_bp, target, overlap)
+        labels = self._run_sampler(mels_f, aux_f, seed, greedy)
+        return labels.reshape(mel_bp.shape[0], -1, labels.shape[-1]).cpu().numpy()
+
+    def _run_sampler(self, mels_f: torch.Tensor, aux_f: torch.Tensor, seed: int,
+                     greedy: bool) -> torch.Tensor:
+        """The sampler over conditioning (F, T, ·) → labels (F, T), with the
+        packed weights (packed on first use)."""
         if self.packed is None:
             self.packed = pack_wavernn_weights(self.model)
-        mels_f, aux_f = self._fold(mel_bp, target, overlap)
-        labels = wavernn_sample(self.packed, mels_f, aux_f, seed,
-                                self.model.n_classes, greedy=greedy)
-        return labels.reshape(mel_bp.shape[0], -1, labels.shape[-1]).cpu().numpy()
+        return wavernn_sample(self.packed, mels_f, aux_f, seed, self.model.n_classes,
+                              greedy=greedy)
 
     @torch.no_grad()
     def generate(self, mels_f: torch.Tensor, aux_f: torch.Tensor, seed: int = 0,
@@ -380,15 +386,20 @@ class WaveRnnVocoder:
     def infer_waveform(self, mel: np.ndarray, normalize: bool = True,
                        target: Optional[int] = None, overlap: Optional[int] = None,
                        seed: int = 0, greedy: bool = False,
-                       use_sampler: Optional[bool] = None, draws=None) -> np.ndarray:
+                       use_sampler: Optional[bool] = None, draws=None,
+                       batched: Optional[bool] = None) -> np.ndarray:
         """One mel → waveform. ``use_sampler`` (default: RAW mode) takes the
         fused sampler path; otherwise the step-by-step ``generate`` over
         folds of ``gen_target`` + 2·``gen_overlap`` of the unbucketed mel,
-        with ``draws`` handed to it when given."""
+        with ``draws`` handed to it when given. ``batched=False`` (default
+        ``cfg.gen_batched``) runs the whole unfolded sequence of the
+        unbucketed mel as one fold, through the sampler (one launch at F=1)
+        or ``generate``, with no crossfade."""
         cfg = self.cfg
+        batched = cfg.gen_batched if batched is None else batched
         if use_sampler is None:
             use_sampler = cfg.mode == "RAW"
-        if use_sampler:
+        if use_sampler and batched:
             return self.infer_waveform_batch([mel], normalize, target, overlap, seed, greedy)[0]
         target = target or cfg.gen_target
         overlap = overlap or cfg.gen_overlap
@@ -396,9 +407,18 @@ class WaveRnnVocoder:
         wave_len = (mel.shape[0] - 1) * cfg.hop_size
         mel_p = np.pad(mel, ((cfg.pad, cfg.pad), (0, 0)))[None]
         with torch.no_grad():
-            mels_f, aux_f = self._fold(mel_p, target, overlap)
-        samples = self.generate(mels_f, aux_f, seed, greedy, draws)
-        return self._finalize(samples.cpu().numpy().astype(np.float64), overlap, wave_len)
+            if batched:
+                mels_f, aux_f = self._fold(mel_p, target, overlap)
+            else:
+                mels_f, aux_f = self.model.upsample_features(
+                    torch.from_numpy(mel_p).to(self.device))
+            if use_sampler:
+                labels = self._run_sampler(mels_f, aux_f, seed, greedy)
+                samples = 2.0 * labels.double() / (2 ** cfg.bits - 1.0) - 1.0
+            else:
+                samples = self.generate(mels_f, aux_f, seed, greedy, draws)
+        return self._finalize(samples.cpu().numpy().astype(np.float64), overlap, wave_len,
+                              batched)
 
     def infer_waveform_batch(self, mels, normalize: bool = True,
                              target: Optional[int] = None, overlap: Optional[int] = None,
@@ -427,11 +447,12 @@ class WaveRnnVocoder:
                 out.append(self._finalize(samples, overlap, wave_lens[len(out)]))
         return out
 
-    def _finalize(self, samples: np.ndarray, overlap: int, wave_len: int) -> np.ndarray:
-        """Crossfade-unfold + mu-law decode (RAW) + de-emphasis + trim +
-        fade-out."""
+    def _finalize(self, samples: np.ndarray, overlap: int, wave_len: int,
+                  batched: bool = True) -> np.ndarray:
+        """Crossfade-unfold (the one fold as it is when not ``batched``) +
+        mu-law decode (RAW) + de-emphasis + trim + fade-out."""
         cfg = self.cfg
-        output = xfade_and_unfold(samples, overlap)
+        output = xfade_and_unfold(samples, overlap) if batched else samples[0]
         if cfg.mu_law and cfg.mode == "RAW":
             output = decode_mu_law(output, 2 ** cfg.bits, False)
         if cfg.apply_preemphasis:

@@ -11,8 +11,10 @@ wavs of the first utterances, the RAW ones through the fused sampler.
 ``remat=True`` (on by itself from batch 192) recomputes the GRUs in the
 backward and takes the FC head and loss in checkpointed time chunks of
 ``head_chunk`` steps, so the (B, T, n_classes) logits are never held whole.
-Single process: the mesh and multihost paths of the JAX trainer wait for
-the port's data parallelism.
+Data parallel across processes (``parallel.multihost``): every rank builds
+the same global batch and takes its rows, the BatchNorms see the global
+batch, the gradients are averaged over ranks, and rank 0 alone logs,
+checkpoints and runs ``gen_testset``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from ... import resolve_device, seeded
 from ...config import Config
 from ...dsp import (decode_mu_law, encode_mu_law, float_2_label, label_2_float, preemphasis_np,
                     save_wav)
+from ...parallel import multihost
 from ...train.checkpoint import CheckpointManager
 from ...train.logging import TrainLogger
 from ...train.precision import Policy
@@ -148,32 +151,40 @@ def make_wavernn_step(model: WaveRNN, opt: torch.optim.Optimizer, mode: str,
                                        mask[sl], use_reentrant=False)
         return total / batch["y"].numel()
 
+    params = list(model.parameters())
+
     def step(batch):
-        loss = loss_of(batch)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        with multihost.sharded():
+            loss = loss_of(batch)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        multihost.average_gradients(params)
         opt.step()
-        return loss.detach()
+        return multihost.mean_over_ranks(loss.detach())
 
     return step
 
 
 def gen_testset(model: WaveRNN, dataset: WaveRnnDataset, save_path: Path, cfg,
                 samples: int = 2, step: int = 0, tb: Optional[TrainLogger] = None,
-                vocoder: Optional[WaveRnnVocoder] = None) -> WaveRnnVocoder:
+                vocoder: Optional[WaveRnnVocoder] = None,
+                batched: Optional[bool] = None) -> WaveRnnVocoder:
     """Ground-truth and generated wavs of the first ``samples`` utterances of
     ``dataset`` into ``save_path`` (and to ``tb``), generated with
     ``model``'s weights as they are now: ``vocoder`` (made on ``model``'s
     device when None) takes them, and drops the sampler weights it packed
     from an earlier checkpoint. RAW mode samples through the fused sampler
-    (one launch per utterance), MOL through the step-by-step generator.
-    Returns the vocoder, for the next checkpoint."""
+    (one launch per utterance; with ``batched=False``, default
+    ``cfg.gen_batched``, one fold of the whole utterance), MOL through the
+    step-by-step generator. Returns the vocoder, for the next checkpoint."""
     if vocoder is None:
         vocoder = WaveRnnVocoder(cfg=cfg, verbose=False, device=next(model.parameters()).device)
     vocoder.load_state_dict(model.state_dict())
     save_path = Path(save_path)
     save_path.mkdir(parents=True, exist_ok=True)
-    gen_str = f"gen_batched_target{cfg.gen_target}_overlap{cfg.gen_overlap}"
+    batched = cfg.gen_batched if batched is None else batched
+    gen_str = (f"gen_batched_target{cfg.gen_target}_overlap{cfg.gen_overlap}" if batched
+               else "gen_not_batched")
     bits = 16 if cfg.mode == "MOL" else cfg.bits
     for i in range(min(samples, len(dataset))):
         mel, quant = dataset[i]
@@ -184,7 +195,7 @@ def gen_testset(model: WaveRNN, dataset: WaveRnnDataset, save_path: Path, cfg,
         save_wav(gt.astype(np.float32), save_path / f"{step}_steps_{i}_target.wav",
                  cfg.sample_rate)
         # the dataset's mels are already ±1
-        wav = vocoder.infer_waveform(mel, normalize=False)
+        wav = vocoder.infer_waveform(mel, normalize=False, batched=batched)
         save_wav(wav, save_path / f"{step}_steps_{i}_{gen_str}.wav", cfg.sample_rate)
         if tb is not None:
             tb.audio(step, f"gen/sample_{i}", wav, cfg.sample_rate)
@@ -200,8 +211,11 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, ground_truth: bool = Fal
     resume the newest checkpoint under ``models_dir/run_id/ckpt_wavernn``;
     saves every ``save_every`` steps (0: never), each save followed by
     ``gen_testset`` of ``gen_samples`` utterances into
-    ``models_dir/run_id/samples_wavernn``, and at the end."""
-    dev = resolve_device(device)
+    ``models_dir/run_id/samples_wavernn``, and at the end. Data parallel
+    under the ``MB_*`` environment (``parallel.multihost``): ``batch_size``
+    is the global batch, split across the ranks."""
+    multihost.initialize_from_env(device)
+    dev = multihost.rank_device(resolve_device(device))
     syn_dir = Path(syn_dir)
     cfg = Config(wavernn_config()).merge(cfg or {})
     # the plain step's (B, T, ·) GRU activations and (B, T, n_classes)
@@ -227,6 +241,7 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, ground_truth: bool = Fal
         opt.load_state_dict(restored["opt"])
         step = step0 + 1
         print(f"Resumed WaveRNN at step {step0}")
+    multihost.make_global(model, opt)
 
     rng = random.Random(seed)
     loader = DataLoader(dataset, cfg.batch_size, lambda b: collate_wavernn(b, cfg, rng),
@@ -238,6 +253,7 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, ground_truth: bool = Fal
     done = False
     while not done:
         for batch in loader:
+            batch = multihost.shard_global_batch(batch)
             acc.append(float(step_fn(to_device(batch, dev))))
             if step % log_every == 0:
                 dt = (time.time() - t0) / len(acc)
@@ -247,9 +263,10 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, ground_truth: bool = Fal
                 t0, acc = time.time(), []
             if save_every and step % save_every == 0:
                 ckpt.save(step, {"model": model.state_dict(), "opt": opt.state_dict()})
-                if gen_samples:
+                if gen_samples and multihost.is_primary():
                     vocoder = gen_testset(model, dataset, run_dir / "samples_wavernn", cfg,
                                           samples=gen_samples, step=step, tb=tb, vocoder=vocoder)
+                multihost.barrier()
             step += 1
             if total_steps and step > total_steps:
                 done = True
@@ -257,4 +274,5 @@ def train(run_id: str, syn_dir: Path, models_dir: Path, ground_truth: bool = Fal
         if len(loader) == 0:
             raise RuntimeError("dataset smaller than one batch")
     ckpt.save(step, {"model": model.state_dict(), "opt": opt.state_dict()}, force=True)
+    multihost.barrier()
     return model

@@ -3,7 +3,8 @@
 The port's counterpart of ``mockingbird_tpu/train/checkpoint.py``'s
 ``CheckpointManager``, reduced to what the VITS and Tacotron trainers call:
 ``save`` (keeping the newest ``max_to_keep``, copying every
-``backup_every``-th step aside) and ``restore_latest``. A checkpoint is one
+``backup_every``-th step aside; rank 0 alone writes) and ``restore_latest``
+(every rank reads). A checkpoint is one
 file ``<step>.pt`` holding a dict of state dicts.
 """
 from __future__ import annotations
@@ -14,6 +15,8 @@ from pathlib import Path
 from typing import Any, Optional, Tuple
 
 import torch
+
+from ..parallel import multihost
 
 
 class CheckpointManager:
@@ -32,8 +35,11 @@ class CheckpointManager:
         A step that is already saved raises ``FileExistsError`` unless
         ``force`` (then it is overwritten). Every ``backup_every``-th step
         is also copied to ``<directory>_backup_<step:06d>.pt`` beside the
-        directory, which pruning never touches."""
+        directory, which pruning never touches. In a multi-process run only
+        rank 0 writes; the others return the path."""
         path = self.directory / f"{step}.pt"
+        if not multihost.is_primary():
+            return path
         if path.exists() and not force:
             raise FileExistsError(f"checkpoint of step {step} exists: {path}")
         tmp = path.with_suffix(f".{os.getpid()}.tmp")

@@ -4,7 +4,7 @@ The port's counterpart of ``mockingbird_tpu/train/logging.py``. Its
 ``TrainLogger`` has what the trainers call: ``scalars`` append one JSON line
 per step to ``scalars.jsonl``, ``audio`` writes a 16-bit wav, ``image`` an
 ``.npy`` array and ``alignment`` an attention map scaled to [0, 1] as one,
-all under ``log_dir``. ``ValueWindow``, ``stream``, ``simple_table`` and
+all under ``log_dir``, on rank 0 only. ``ValueWindow``, ``stream``, ``simple_table`` and
 ``progbar`` are copies.
 """
 from __future__ import annotations
@@ -15,6 +15,8 @@ from pathlib import Path
 
 import numpy as np
 from scipy.io import wavfile
+
+from ..parallel import multihost
 
 
 class ValueWindow:
@@ -44,25 +46,37 @@ class ValueWindow:
 
 
 class TrainLogger:
+    """Writes under ``log_dir`` on rank 0 only, as the JAX package's logger
+    does in a multi-process run; on the other ranks every method does
+    nothing."""
+
     def __init__(self, log_dir):
         self.log_dir = Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.enabled = multihost.is_primary()
+        if self.enabled:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
 
     def _path(self, step: int, tag: str, suffix: str) -> Path:
         return self.log_dir / f"{tag.replace('/', '_')}_{step:07d}{suffix}"
 
     def scalars(self, step: int, **kwargs) -> None:
+        if not self.enabled:
+            return
         with (self.log_dir / "scalars.jsonl").open("a") as f:
             f.write(json.dumps({"step": step, **{k: float(v) for k, v in kwargs.items()}})
                     + "\n")
 
     def audio(self, step: int, tag: str, wav: np.ndarray, sr: int = 16000) -> None:
+        if not self.enabled:
+            return
         peak = max(1e-3, float(np.max(np.abs(wav)))) if len(wav) else 1.0
         pcm = np.round(np.clip(np.asarray(wav, np.float32) / peak, -1, 1) * 32767)
         wavfile.write(self._path(step, tag, ".wav"), sr, pcm.astype(np.int16))
 
     def image(self, step: int, tag: str, img: np.ndarray) -> None:
         """img (H, W) or (H, W, C) in [0, 1]."""
+        if not self.enabled:
+            return
         np.save(self._path(step, tag, ".npy"), np.asarray(img, np.float32))
 
     def alignment(self, step: int, tag: str, attn: np.ndarray) -> None:

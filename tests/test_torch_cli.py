@@ -65,9 +65,12 @@ ARGVS = [
 
 
 def _ns(parser, argv):
+    """The parsed namespace without what only the port has: the global
+    ``--device`` and ``train-vits``'s ``--log_every``."""
     d = vars(parser.parse_args(argv))
     d.pop("func")
     d.pop("device", None)
+    d.pop("log_every", None)
     return d
 
 
@@ -80,11 +83,20 @@ def test_device_option_and_deferred_subcommands(capsys):
     p = build_parser()
     assert p.parse_args(["serve"]).device == "cuda"
     assert p.parse_args(["--device", "cpu", "serve"]).device == "cpu"
+    # the subcommands ported last parse as JAX's do; wav2emo is no CLI family
     for argv in (["import-checkpoint", "--family", "encoder", "--torch-ckpt", "a", "--out", "b"],
-                 ["download-datasets", "/d"], ["launch", "--", "tts", "x"]):
-        jbuild_parser().parse_args(argv)
+                 ["import-checkpoint", "--family", "ppg2mel", "--torch-ckpt", "a", "--out", "b",
+                  "--config", "c.json"],
+                 ["download-datasets", "/d"],
+                 ["download-datasets", "/d", "--datasets", "aishell3", "magicdata",
+                  "--mirror", "eu", "--no-extract", "--list"],
+                 ["launch", "--", "tts", "x"], ["launch", "--nprocs", "4", "--port", "99",
+                                                "--", "train-vits", "s", "r"]):
+        assert _ns(p, argv) == _ns(jbuild_parser(), argv), argv
+    for parser in (p, jbuild_parser()):
         with pytest.raises(SystemExit):
-            p.parse_args(argv)
+            parser.parse_args(["import-checkpoint", "--family", "wav2emo", "--torch-ckpt", "a",
+                               "--out", "b"])
         assert "invalid choice" in capsys.readouterr().err
 
 

@@ -640,3 +640,83 @@ def test_emotion_extractor_on_card_matches_cpu(card, width):
     for g, c in zip(gpu.extract_batch(wavs), cpu.extract_batch(wavs)):
         assert g.shape == c.shape and np.isfinite(g).all()
         assert np.linalg.norm(g - c) <= 1e-4 * np.linalg.norm(c)
+
+
+@pytest.mark.parametrize("frames", [31, 47])
+def test_unbatched_vocoder_launches_k1_once_at_one_fold(card, frames):
+    """``infer_waveform(batched=False)``: the whole utterance (frames · 256
+    steps at the full width) as one fold, one K1 launch at F=1, greedy f32
+    labels held against the plain version by the gap rule."""
+    from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder
+    voc = WaveRnnVocoder(verbose=False, seed=0, device=card)
+    voc.packed = pack_wavernn_weights(voc.model, torch.float32)
+    captured = []
+    import mockingbird_tpu_torch.models.vocoder.wavernn as wavernn_module
+    real = wavernn_module.wavernn_sample
+
+    def recording(w, mels, aux, *a, **k):
+        captured.append((mels, aux))
+        return real(w, mels, aux, *a, **k)
+
+    wavernn_module.wavernn_sample = recording
+    try:
+        before = wavernn_sample.launches
+        mel = np.random.RandomState(frames).randn(80, frames).astype(np.float32)
+        wav = voc.infer_waveform(mel, batched=False, greedy=True)
+        assert wavernn_sample.launches == before + 1
+    finally:
+        wavernn_module.wavernn_sample = real
+    (mels, aux), = captured
+    assert mels.shape[:2] == (1, frames * voc.cfg.hop_size)
+    assert wav.shape == ((frames - 1) * voc.cfg.hop_size,) and np.isfinite(wav).all()
+    p, gaps = wavernn_sample_plain(voc.packed, mels, aux, 0, greedy=True, return_gaps=True)
+    k = wavernn_sample(voc.packed, mels, aux, 0, greedy=True)
+    _hold(k, p, gaps, 1e-3)
+
+
+def test_nccl_world_of_one_trains_as_no_group(card):
+    """``initialize_from_env`` on the card with ``MB_*`` set to a world of
+    one picks NCCL, and two GE2E steps on it give the losses the same steps
+    give without a group (a subprocess each; the group's collectives are
+    then identities, but they run)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    script = """
+import json, sys, numpy as np, torch
+from mockingbird_tpu_torch.parallel import multihost
+started = multihost.initialize_from_env("cuda")
+from mockingbird_tpu_torch.models.encoder.model import init_params
+from mockingbird_tpu_torch.models.encoder.train import make_optimizer, make_train_step
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = multihost.rank_device("cuda")
+params = init_params(0, 64, 32).to(dev).train()
+opt = make_optimizer(params)
+multihost.make_global(params, opt)
+step = make_train_step(params, opt, 4, 3, "fp32")
+rng = np.random.RandomState(0)
+losses = [float(step(torch.from_numpy(rng.randn(4, 3, 20, 40).astype(np.float32)).to(dev))[0])
+          for _ in range(2)]
+backend = torch.distributed.get_backend() if started else None
+print("OUT " + json.dumps(dict(started=started, backend=backend, losses=losses)))
+multihost.shutdown()
+"""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    runs = {}
+    base = {k: v for k, v in os.environ.items() if not k.startswith("MB_")}
+    for name, extra in (("group", dict(MB_COORDINATOR=f"localhost:{port}", MB_NUM_PROCESSES="1",
+                                       MB_PROCESS_ID="0")), ("none", {})):
+        out = subprocess.run([sys.executable, "-c", script], env=dict(base, **extra),
+                             capture_output=True, text=True, timeout=300,
+                             cwd=str(__import__("pathlib").Path(__file__).parents[1]))
+        assert out.returncode == 0, out.stderr[-3000:]
+        runs[name] = json.loads([ln for ln in out.stdout.splitlines()
+                                 if ln.startswith("OUT ")][0][4:])
+    assert runs["group"]["started"] and runs["group"]["backend"] == "nccl"
+    assert not runs["none"]["started"]
+    np.testing.assert_allclose(runs["group"]["losses"], runs["none"]["losses"], rtol=1e-6)

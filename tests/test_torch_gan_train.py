@@ -1,21 +1,18 @@
 """The port's GAN-vocoder training (HiFi-GAN and Fre-GAN) against the JAX
-package: flax's ``SpectralNorm`` semantics, both discriminator bundles at
-their full widths, Fre-GAN's multi-resolution STFT loss, the dataset and
-its batches, two f32 steps of the trainer against the JAX ``step_fn`` with
-``optax.adamw`` and its schedule (a small generator, the full
-discriminators), the bf16 step's losses and gradients, the weight bridge of
-both discriminator trees, and ``train`` end to end with validation, a
+package: both discriminator bundles at their full widths, Fre-GAN's
+multi-resolution STFT loss, the dataset and its batches, the weight bridge
+of both discriminator trees, and ``train`` end to end with validation, a
 checkpoint and a resume. flax parameters are drawn from numpy at the shapes
 of ``jax.eval_shape``; the JAX side is jitted. float32 unless stated;
-tolerances stated per test."""
+tolerances stated per test. flax's ``SpectralNorm`` and the trainer's step
+are held in ``test_torch_gan_train_steps.py`` and
+``test_torch_gan_train_grads.py``, which import the setup helpers here."""
 import importlib
 import json
 
-import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -25,8 +22,6 @@ from mockingbird_tpu.models.vocoder import fregan as jfregan
 from mockingbird_tpu.models.vocoder import gan_losses as jlosses
 from mockingbird_tpu.models.vocoder import hifigan as jhifigan
 from mockingbird_tpu.models.tacotron import dataset as jtaco_data
-from mockingbird_tpu.train.precision import Policy as JPolicy
-from mockingbird_tpu_torch.models import layers as tl
 from mockingbird_tpu_torch.models.tacotron import dataset as ttaco_data
 from mockingbird_tpu_torch.models.vocoder import dataset as tdata
 from mockingbird_tpu_torch.models.vocoder import fregan as tfregan
@@ -80,81 +75,6 @@ def _max_diff(a, b):
     fa, fb = flatten_tree(jax.tree.map(np.asarray, a)), flatten_tree(b)
     assert set(fa) == set(fb)
     return max(float(np.abs(fa[k] - fb[k]).max(initial=0.0)) for k in fa)
-
-
-# ---------------------------------------------------------------------------
-# SpectralNorm
-# ---------------------------------------------------------------------------
-
-class _JSNConv(fnn.Module):
-    """flax ``SpectralNorm(Conv)`` called ``n_calls`` times in one apply."""
-    n_calls: int = 1
-
-    @fnn.compact
-    def __call__(self, x, update_stats: bool):
-        sn = fnn.SpectralNorm(fnn.Conv(6, (5,), strides=(2,), padding="SAME",
-                                       feature_group_count=2, name="conv_conv"), name="conv")
-        return [sn(x, update_stats=update_stats) for _ in range(self.n_calls)]
-
-
-class _TSNConv(torch.nn.Module):
-    def __init__(self):
-        super().__init__()
-        self.conv = tl.SpectralNorm(tl.Conv1d(4, 6, 5, stride=2, groups=2))
-
-
-@pytest.mark.parametrize("n_calls", [1, 2])
-@pytest.mark.parametrize("update", [False, True])
-def test_spectral_norm_matches_flax(update, n_calls):
-    """flax's ``SpectralNorm`` around a strided grouped conv, (2, 9, 4)
-    input: the outputs of one or two chained calls, the stored ``u`` and
-    ``sigma`` (moved only with ``update_stats``, the second call starting
-    from the first one's) within 1e-6, and the kernel's gradient through
-    ``sigma`` within 1e-6 of its largest element (measured ~4e-7)."""
-    x = np.random.RandomState(1).randn(2, 9, 4).astype(np.float32)
-    jmod = _JSNConv(n_calls)
-    var = _variables(jmod, x, False)
-    tmod = load_flax(_TSNConv(), var)
-
-    def f(params):
-        outs, mut = jmod.apply({"params": params, "batch_stats": var["batch_stats"]}, x,
-                               update, mutable=["batch_stats"])
-        return sum(jnp.sum(o * o) for o in outs), (outs, mut["batch_stats"])
-
-    (_, (outs, stats)), grads = jax.value_and_grad(f, has_aux=True)(var["params"])
-    got = [tmod.conv(torch.from_numpy(x), update) for _ in range(n_calls)]
-    for g, want in zip(got, outs):
-        np.testing.assert_allclose(g.detach().numpy(), np.asarray(want), atol=1e-6)
-    assert _max_diff(stats, to_flax(tmod)["batch_stats"]) <= 1e-6
-    if not update:
-        assert _max_diff(var["batch_stats"], to_flax(tmod)["batch_stats"]) == 0.0
-    sum(torch.sum(g * g) for g in got).backward()
-    want = np.transpose(np.asarray(grads["conv_conv"]["kernel"]), (2, 1, 0))
-    np.testing.assert_allclose(tmod.conv.layer.weight.grad.numpy(), want,
-                               atol=1e-6 * float(np.abs(want).max()))
-
-
-def test_spectral_norm_bf16_matches_flax():
-    """bf16 parameters and ``u`` (the JAX step casts its ``batch_stats``):
-    the output within 2e-2 of flax's largest (bf16 keeps 8 bits; measured
-    ~4e-3), the stored ``u`` and ``sigma`` within 1e-2 (measured 0)."""
-    x = np.random.RandomState(1).randn(2, 9, 4).astype(np.float32)
-    jmod = _JSNConv(2)
-    var = _variables(jmod, x, False)
-    pol = JPolicy.from_name("bf16")
-    outs, mut = jmod.apply(pol.cast(jax.tree.map(jnp.asarray, var)), pol.cast(jnp.asarray(x)),
-                           True, mutable=["batch_stats"])
-    tmod = load_flax(_TSNConv(), var)
-    conv = tmod.conv
-    with torch.no_grad():
-        conv.layer.weight.data = conv.layer.weight.data.bfloat16()
-        conv.layer.bias.data = conv.layer.bias.data.bfloat16()
-        got = [conv(torch.from_numpy(x).bfloat16(), True) for _ in range(2)]
-    for g, want in zip(got, outs):
-        want = np.asarray(want, np.float32)
-        assert float(np.abs(g.float().numpy() - want).max()) <= 2e-2 * float(np.abs(want).max())
-    stats = jax.tree.map(lambda a: np.asarray(a, np.float32), pol.uncast(mut["batch_stats"]))
-    assert _max_diff(stats, to_flax(tmod)["batch_stats"]) <= 1e-2
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +247,8 @@ def test_dataset_and_batches_match_jax(syn_dir, fine_tuning):
 
 
 # ---------------------------------------------------------------------------
-# the training step
+# the training step's setup (its tests: test_torch_gan_train_steps.py and
+# test_torch_gan_train_grads.py import it)
 # ---------------------------------------------------------------------------
 
 def _step_setup(arch="hifigan", seed=0, dtype=np.float32):
@@ -359,247 +280,6 @@ def _port(arch, gp, dvar, dtype=torch.float32, **cfg):
 
 def _to_torch(batch, dtype=torch.float64):
     return {k: torch.from_numpy(v).to(dtype) for k, v in batch.items()}
-
-
-@pytest.fixture(scope="module")
-def two_steps():
-    """Two steps of the JAX trainer's ``step_fn`` (``optax.adamw`` with the
-    trainer's schedule) from the same state with the discriminators on, and
-    one step with them off, in float64; the two steps in float32 too."""
-    out = {}
-    for dtype, runs in ((np.float64, ((True, 2), (False, 1))), (np.float32, ((True, 2),))):
-        with jax.enable_x64(dtype == np.float64):
-            jc, gen, disc, gp, dvar, batch = _step_setup(dtype=dtype)
-            tx = optax.adamw(jtrain._lr_schedule(jc), b1=jc.adam_b1, b2=jc.adam_b2)
-            step_fn = jtrain.make_gan_step(gen, disc, tx, tx, jc, "fp32")
-            jb = jax.tree.map(jnp.asarray, batch)
-            for active, n in runs:
-                g = jax.tree.map(jnp.asarray, gp)
-                d = jax.tree.map(jnp.asarray, dvar)
-                g_opt, d_opt = tx.init(g), tx.init(d["params"])
-                losses = []
-                for i in range(n):
-                    g, d, g_opt, d_opt, *ls = step_fn(g, d, g_opt, d_opt, jb,
-                                                      jnp.asarray(i + 1), active)
-                    losses.append([float(v) for v in ls])
-                out[dtype, active] = (gp, dvar, batch, losses, jax.tree.map(np.asarray, g),
-                                      jax.tree.map(np.asarray, d))
-    return out
-
-
-def test_two_steps_match_jax(two_steps):
-    """Two steps of ``make_gan_step`` against the JAX step's: the losses
-    within 1e-5 relative, the generator's and the discriminators' parameters
-    and the spectral-norm ``u``/``sigma`` within 1e-5, both optimizers'
-    counts at 2. In float64 on both sides (measured ~1e-12): in float32 an
-    element whose first-step gradient sits under Adam's eps (1e-8), or
-    behind a leaky-ReLU input within rounding of 0 (the full discriminators
-    hold millions), moves by ±lr on either side as rounding decides (a
-    float32 run of this test: ~4e-4 on such elements, ~5e-7 elsewhere). The
-    float32 steps and the float32 and bf16 gradients are held below."""
-    gp, dvar, batch, losses, jg, jd = two_steps[np.float64, True]
-    tc, tg, td, og, od = _port("hifigan", gp, dvar, torch.float64)
-    step = ttrain.make_gan_step(tg, td, og, od, tc, "fp32")
-    tb = _to_torch(batch)
-    for want in losses:
-        got = [float(v) for v in step(tb)]
-        for g, w in zip(got, want):
-            assert abs(g / w - 1) <= 1e-5, (got, want)
-    assert _max_diff(jg, to_flax(tg)["params"]) <= 1e-5
-    assert _max_diff(jd, to_flax(td)) <= 1e-5
-    for opt, module in ((og, tg), (od, td)):
-        assert all(float(opt.state[p]["step"]) == 2 for p in module.parameters())
-
-
-def test_step_without_discriminators_matches_jax(two_steps):
-    """Before ``disc_start_step`` (float64, as above): the generator's loss
-    is the mel term alone, the discriminators and their optimizer do not
-    move (no state, so the schedule's count stays 0), and the generator's
-    step matches JAX's within 1e-5."""
-    gp, dvar, batch, losses, jg, jd = two_steps[np.float64, False]
-    tc, tg, td, og, od = _port("hifigan", gp, dvar, torch.float64)
-    step = ttrain.make_gan_step(tg, td, og, od, tc, "fp32")
-    g_loss, d_loss, mel = (float(v) for v in step(_to_torch(batch), False))
-    assert d_loss == 0.0 and g_loss == mel
-    assert abs(g_loss / losses[0][0] - 1) <= 1e-5 and abs(mel / losses[0][2] - 1) <= 1e-5
-    assert _max_diff(jg, to_flax(tg)["params"]) <= 1e-5
-    assert _max_diff(dvar, to_flax(td)) == 0.0 and not od.state
-
-
-def test_two_f32_steps_match_jax(two_steps):
-    """The two steps in float32, the trainer's own dtype: the losses within
-    1e-5 relative; the generator's parameters within 1e-5 on every element
-    (measured 1.1e-6); the discriminators' parameters within 1e-5 on all but
-    1e-4 of their 70.7 M elements (measured 1185, 1.7e-5 of them, all in the
-    period-5 discriminator), every element within 4·lr + 1e-5 (Adam moves
-    one by at most ~lr a step; the 1185 differ by up to 2·lr); the
-    spectral-norm ``u``/``sigma`` within 1e-5. The elements that differ have
-    first-step gradients that agree between the packages (median
-    |difference| 9e-11 against a median |gradient| of 1.5e-4) and are not
-    small: their second-step gradients differ, as a leaky-ReLU input of the
-    second step's forward that sits within float32 rounding of 0 takes the
-    other slope on one side. A threshold on the first step's gradient
-    leaves the largest difference at 2·lr, so none is applied."""
-    gp, dvar, batch, losses, jg, jd = two_steps[np.float32, True]
-    tc, tg, td, og, od = _port("hifigan", gp, dvar)
-    step = ttrain.make_gan_step(tg, td, og, od, tc, "fp32")
-    tb = _to_torch(batch, torch.float32)
-    for want in losses:
-        got = [float(v) for v in step(tb)]
-        for g, w in zip(got, want):
-            assert abs(g / w - 1) <= 1e-5, (got, want)
-    assert _max_diff(jg, to_flax(tg)["params"]) <= 1e-5
-    have, want = flatten_tree(to_flax(td)), flatten_tree(jax.tree.map(np.asarray, jd))
-    assert set(have) == set(want)
-    stats = [k for k in want if k.startswith("batch_stats/")]
-    assert max(float(np.abs(have[k] - want[k]).max()) for k in stats) <= 1e-5
-    diff = np.concatenate([np.abs(have[k] - want[k]).ravel() for k in want if k not in stats])
-    assert (diff > 1e-5).mean() <= 1e-4 and diff.max() <= 4 * tc.learning_rate + 1e-5
-
-
-def _port_grads(module):
-    """The gradients a step left in ``module``, as its flax tree."""
-    ref = type(module)(module.cfg) if hasattr(module, "cfg") else type(module)()
-    with torch.no_grad():
-        for (_, p), (_, q) in zip(module.named_parameters(), ref.named_parameters()):
-            q.copy_(p.grad)
-    return flatten_tree(to_flax(ref)["params"])
-
-
-def _jax_losses_and_grads(jc, gen, disc, gp, dvar, batch, precision):
-    """The JAX step's losses and gradients before any update, as
-    ``make_gan_step`` computes them under ``precision``'s policy: the
-    discriminators' on (y, ŷ) with ``train=True``, the generator's through
-    the discriminators at the statistics that pass stored; and the
-    generator's gradient of its loss without the mel term."""
-    pol = JPolicy.from_name(precision)
-    mels, y = jnp.asarray(batch["mels"]), jnp.asarray(batch["wavs"])
-
-    def gen_apply(p):
-        return pol.uncast(gen.apply({"params": pol.cast(p)}, pol.cast(mels)))
-
-    def disc_apply(dp, stats, a, b, train):
-        out = disc.apply({"params": pol.cast(dp), "batch_stats": pol.cast(stats)},
-                         pol.cast(a), pol.cast(b), train,
-                         mutable=["batch_stats"] if train else False)
-        return pol.uncast(out)
-
-    @jax.jit
-    def run(gp, dp, stats):
-        y_hat = gen_apply(gp)
-
-        def d_loss_fn(dp):
-            (mpd, msd), mut = disc_apply(dp, stats, y, jax.lax.stop_gradient(y_hat), True)
-            loss = (jlosses.discriminator_loss(mpd[0], mpd[1])[0]
-                    + jlosses.discriminator_loss(msd[0], msd[1])[0])
-            return loss, mut["batch_stats"]
-
-        (d_loss, new_stats), d_grads = jax.value_and_grad(d_loss_fn, has_aux=True)(dp)
-
-        def g_loss_fn(gp):
-            y_hat = gen_apply(gp)
-            mel = jnp.mean(jnp.abs(jtrain.mel_loss_fn(y, jc) - jtrain.mel_loss_fn(y_hat, jc))) * 45
-            mpd, msd = disc_apply(dp, new_stats, y, y_hat, False)
-            total = (mel + jlosses.feature_loss(mpd[2], mpd[3])
-                     + jlosses.feature_loss(msd[2], msd[3])
-                     + jlosses.generator_loss(mpd[1])[0] + jlosses.generator_loss(msd[1])[0])
-            return total, mel
-
-        (g_loss, mel), g_grads = jax.value_and_grad(g_loss_fn, has_aux=True)(gp)
-        disc_grads = jax.grad(lambda gp: jnp.subtract(*g_loss_fn(gp)))(gp)
-        return (g_loss, d_loss, mel), g_grads, d_grads, disc_grads
-
-    losses, *grads = run(gp, dvar["params"], dvar["batch_stats"])
-    return [[float(v) for v in losses]] + [flatten_tree(jax.tree.map(np.asarray, g))
-                                           for g in grads]
-
-
-def _rel_l2(got: dict, want: dict) -> float:
-    num = sum(float(((got[k] - want[k]) ** 2).sum()) for k in want)
-    return float(np.sqrt(num / sum(float((w ** 2).sum()) for w in want.values())))
-
-
-@pytest.fixture(scope="module")
-def one_step():
-    """One step's losses and gradients, JAX's and the port's (the gradients
-    its step leaves behind at a learning rate of 0), in f32 and in bf16:
-    (losses, generator, discriminators, generator without the mel term).
-    The port's last one from a step whose mel term weighs 0 (the STFT loss
-    in its place, with ``lambda_aux`` 0)."""
-    jc, gen, disc, gp, dvar, batch = _step_setup()
-    out = {}
-    for precision in ("fp32", "bf16"):
-        want = _jax_losses_and_grads(jc, gen, disc, gp, dvar, batch, precision)
-        tc, tg, td, og, od = _port("hifigan", gp, dvar, learning_rate=0.0)
-        step = ttrain.make_gan_step(tg, td, og, od, tc, precision)
-        got = [[float(v) for v in step(_to_torch(batch, torch.float32))],
-               _port_grads(tg), _port_grads(td)]
-        tc, tg, td, og, od = _port("hifigan", gp, dvar, learning_rate=0.0, use_stft_loss=True,
-                                   lambda_aux=0.0)
-        ttrain.make_gan_step(tg, td, og, od, tc, precision)(_to_torch(batch, torch.float32))
-        out[precision] = want, got + [_port_grads(tg)]
-    return out
-
-
-def test_f32_losses_and_gradients_match_jax(one_step):
-    """float32: the losses within 1e-5 relative, the gradients of the
-    generator and of the discriminators within 1e-4 relative L2 (measured
-    2.2e-5 and 9.1e-6: a leaky-ReLU input within rounding of 0 takes the
-    other slope on one side)."""
-    (want, g_want, d_want, _), (got, g_got, d_got, _) = one_step["fp32"]
-    for g, w in zip(got, want):
-        assert abs(g / w - 1) <= 1e-5, (got, want)
-    assert _rel_l2(g_got, g_want) <= 1e-4
-    assert _rel_l2(d_got, d_want) <= 1e-4
-
-
-def test_bf16_losses_and_gradients_match_jax(one_step):
-    """bf16, the trainer's default, against the JAX step under its bf16
-    ``Policy`` (both with the spectral-norm ``u`` rounded to bf16): the
-    losses within 3e-3 relative (measured 1.6e-3), the discriminators'
-    gradients within 2.5e-2 relative L2 (measured 8.8e-3), and the
-    generator's gradient through the discriminators (its loss without the
-    mel term) within 2.5e-2 (measured 1.4e-2; JAX's own bf16 and f32 are
-    2.8e-2 apart). The mel term's gradient is bf16 rounding noise at these
-    random weights in both packages: the mel loss takes the log of the
-    generated audio's mel power, so bins with little energy divide the
-    rounding of the bf16 waveform by a small number (JAX's own bf16 and f32
-    gradients of that term alone are 0.45 apart). With it, the generator's
-    gradient is held to JAX's own rounding: within JAX's bf16-to-f32
-    distance of JAX's bf16 gradient (measured 0.33 against 0.42), its norm
-    within 10% of JAX's (measured 1.048 of it)."""
-    (want, g_want, d_want, disc_want), (got, g_got, d_got, disc_got) = one_step["bf16"]
-    for g, w in zip(got, want):
-        assert abs(g / w - 1) <= 3e-3, (got, want)
-    assert _rel_l2(d_got, d_want) <= 2.5e-2
-    assert _rel_l2(disc_got, disc_want) <= 2.5e-2
-    g_f32 = one_step["fp32"][0][1]
-    assert _rel_l2(g_got, g_want) <= _rel_l2(g_want, g_f32)
-
-    def norm(tree):
-        return np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in tree.values()))
-    assert abs(norm(g_got) / norm(g_want) - 1) <= 0.1
-
-
-def test_transposed_conv_bf16_gradient_on_cpu():
-    """HiFi-GAN's first upsampling layer (32 → 16 channels, kernel 8, stride
-    4) in bf16 on the CPU: its input gradient within 1e-2 relative L2 of the
-    same bf16 values' float64 gradient (measured 1.7e-3). oneDNN's bf16
-    convolution with stride 4, which computes that gradient when the layer
-    calls the transposed conv in bf16, returns sums 1.15 (relative L2) away
-    from it at this shape; the layer runs in float32 on the CPU and rounds
-    once."""
-    rng = np.random.RandomState(0)
-    layer = tl.ConvTranspose1d(32, 16, 8, 4).to(torch.bfloat16)
-    x = torch.from_numpy(rng.randn(2, 32, 32).astype(np.float32)).bfloat16().requires_grad_()
-    y = layer(x)
-    ct = torch.from_numpy(rng.randn(*y.shape).astype(np.float32)).bfloat16()
-    y.backward(ct)
-    w = layer.kernel().detach().to(torch.bfloat16).double()
-    x64 = x.detach().double().requires_grad_()
-    torch.nn.functional.conv_transpose1d(x64, w, None, 4).backward(ct.double())
-    err = float((x.grad.double() - x64.grad).norm() / x64.grad.norm())
-    assert err <= 1e-2, err
 
 
 # ---------------------------------------------------------------------------

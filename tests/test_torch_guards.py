@@ -63,8 +63,43 @@ print("ok", len({_modules()!r}))
     assert out.stdout.startswith("ok")
 
 
+def test_launch_children_and_workers_run_without_jax(tmp_path):
+    """The processes ``launch`` starts, and the multi-process test worker,
+    run with JAX blocked in every process (a ``sitecustomize`` on
+    ``PYTHONPATH`` installs the blocker at each interpreter's start): two
+    ranks of ``download-datasets --list`` under ``launch`` join their gloo
+    group and report, and two worker ranks train the GE2E step."""
+    (tmp_path / "sitecustomize.py").write_text(BLOCKER)
+    env = {k: v for k, v in __import__("os").environ.items() if not k.startswith("MB_")}
+    env.update(PYTHONPATH=str(tmp_path), MB_RUN_REPORT="1", OMP_NUM_THREADS="1")
+    probe = subprocess.run([sys.executable, "-c", "import jax"], env=env, capture_output=True,
+                           text=True, timeout=60)
+    assert probe.returncode != 0 and "blocked: jax" in probe.stderr
+    run = subprocess.run([sys.executable, "-m", "mockingbird_tpu_torch.cli", "--device", "cpu",
+                          "launch", "--nprocs", "2", "--", "download-datasets", "unused",
+                          "--list"], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert run.returncode == 0, run.stderr[-3000:]
+    reports = [__import__("json").loads(ln[len("RUN_REPORT "):])
+               for ln in run.stdout.splitlines() if ln.startswith("RUN_REPORT ")]
+    assert sorted((r["rank"], r["world"]) for r in reports) == [(0, 2), (1, 2)]
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "tests/_torch_multiproc_worker.py"),
+                               __import__("json").dumps(dict(num_processes=2, process_id=i,
+                                                             port=port, families=["ge2e"]))],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    for proc in procs:
+        out, _ = proc.communicate(timeout=180)
+        assert proc.returncode == 0 and "LOSSES " in out, out[-3000:]
+
+
 def test_no_source_imports_jax():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests/_torch_multiproc_worker.py"]
     assert len(files) > 20
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -462,7 +497,9 @@ def test_port_modules_of_the_serving_slice_are_guarded():
     for name in ("models.wav2emo", "models.tacotron.emotion", "interop",
                  "interop.torch_weights", "serve", "serve.http", "serve.toolbox",
                  "serve.console", "cli", "cli.main", "cli.__main__", "speak", "speak.srt",
-                 "speak.stretch", "speak.timeline", "speak.api_client", "train.profiler"):
+                 "speak.stretch", "speak.timeline", "speak.api_client", "train.profiler",
+                 "interop.import_checkpoint", "interop.reference_loader", "datasets",
+                 "parallel", "parallel.multihost", "parallel.mesh", "parallel.shardings"):
         assert f"mockingbird_tpu_torch.{name}" in names, name
 
 
@@ -483,6 +520,6 @@ assert not leaked, leaked
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "usage: mockingbird_tpu_torch" in out.stdout and "--device" in out.stdout
-    for name in ("tts", "emo", "serve", "demo", "render-timeline", "train-vc"):
+    for name in ("tts", "emo", "serve", "demo", "render-timeline", "train-vc",
+                 "import-checkpoint", "download-datasets", "launch"):
         assert name in out.stdout, name
-    assert "import-checkpoint" not in out.stdout and "launch" not in out.stdout
