@@ -6,7 +6,9 @@ trim at ``stop_threshold``. The decode loop runs in Python with the state on
 the device; it reads the stop flags back once per step, as the JAX while-loop
 tests them once per step. ``synthesize_mels_device`` keeps the mels on the
 device for the fused pipeline; ``griffin_lim`` inverts a mel without a
-vocoder.
+vocoder. Under a profiler session the decode records its spans
+(``tracing.py``): ``tacotron.decode`` with the steps asked and run, each
+``tacotron.step`` and its ``tacotron.step_wait`` on the stop flags.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from ... import resolve_device, seeded
+from ... import resolve_device, seeded, tracing
 from ...config import Config, sv2tts_audio_config
 from ...dsp import inv_mel_spectrogram, load_wav, melspectrogram
 from ...text import romanize, text_to_sequence
@@ -83,42 +85,50 @@ class Synthesizer:
         done_at (B,) in frames): ``n_frames`` is where the loop stopped,
         ``done_at`` where each item first met the stop rule."""
         model = self._model
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
         b, t_text = texts.shape
-        enc_seq, enc_proj, char_mask = model.encode(texts, spk_embed, style_idx,
-                                                    style_mode, gen)
         n_groups = max_steps // r
-        m = self.cfg.n_mels
-        mel_buf = torch.zeros(n_groups, b, r, m, device=self.device)
-        attn_buf = torch.zeros(n_groups, b, t_text, device=self.device)
-        carry = model.init_carry(b, t_text, self.device)
-        prev = torch.zeros(b, m, device=self.device)
-        done = torch.zeros(b, dtype=torch.bool, device=self.device)
-        done_at = torch.full((b,), n_groups, dtype=torch.int64, device=self.device)
-        t = 0
-        while t < n_groups:
-            carry, (mel_r, scores, stop) = model.decode_step(
-                enc_seq, enc_proj, char_mask, carry, prev, r, gen)
-            mel_buf[t] = mel_r
-            attn_buf[t] = scores
-            # stop rule: stop*10 > min_stop_token, after t*r > 10
-            newly_done = (stop * 10 > min_stop_token) & (t * r > 10)
-            done_at = torch.where(newly_done & ~done, t + 1, done_at)
-            done = done | newly_done
-            prev = mel_r[:, -1, :]
-            t += 1
-            if bool(done.all()):
-                break
-        mels = mel_buf.transpose(0, 1).reshape(b, max_steps, m)
+        with tracing.span("tacotron.decode") as decode:
+            decode.set("batch", b)
+            decode.set("steps_asked", n_groups)
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            enc_seq, enc_proj, char_mask = model.encode(texts, spk_embed, style_idx,
+                                                        style_mode, gen)
+            m = self.cfg.n_mels
+            mel_buf = torch.zeros(n_groups, b, r, m, device=self.device)
+            attn_buf = torch.zeros(n_groups, b, t_text, device=self.device)
+            carry = model.init_carry(b, t_text, self.device)
+            prev = torch.zeros(b, m, device=self.device)
+            done = torch.zeros(b, dtype=torch.bool, device=self.device)
+            done_at = torch.full((b,), n_groups, dtype=torch.int64, device=self.device)
+            t = 0
+            while t < n_groups:
+                with tracing.span("tacotron.step"):
+                    carry, (mel_r, scores, stop) = model.decode_step(
+                        enc_seq, enc_proj, char_mask, carry, prev, r, gen)
+                    mel_buf[t] = mel_r
+                    attn_buf[t] = scores
+                    # stop rule: stop*10 > min_stop_token, after t*r > 10
+                    newly_done = (stop * 10 > min_stop_token) & (t * r > 10)
+                    done_at = torch.where(newly_done & ~done, t + 1, done_at)
+                    done = done | newly_done
+                    prev = mel_r[:, -1, :]
+                    t += 1
+                    with tracing.span("tacotron.step_wait"):
+                        finished = bool(done.all())
+                if finished:
+                    break
+            decode.set("steps_run", t)
+            mels = mel_buf.transpose(0, 1).reshape(b, max_steps, m)
         return mels, attn_buf.transpose(0, 1), t * r, done_at * r
 
     def _encode_texts(self, texts: List[str]):
-        sequences = [text_to_sequence(romanize(t)) for t in texts]
-        t_text = _bucket(max(len(s) for s in sequences), 32)
-        arr = np.zeros((len(sequences), t_text), np.int64)
-        for j, s in enumerate(sequences):
-            arr[j, : len(s)] = s
-        return torch.from_numpy(arr).to(self.device)
+        with tracing.span("tacotron.text"):
+            sequences = [text_to_sequence(romanize(t)) for t in texts]
+            t_text = _bucket(max(len(s) for s in sequences), 32)
+            arr = np.zeros((len(sequences), t_text), np.int64)
+            for j, s in enumerate(sequences):
+                arr[j, : len(s)] = s
+            return torch.from_numpy(arr).to(self.device)
 
     def synthesize_spectrograms(self, texts: List[str], embeddings: Union[np.ndarray, List[np.ndarray]],
                                 return_alignments: bool = False, style_idx: int = 0,
@@ -141,16 +151,17 @@ class Synthesizer:
             mels, attn, n_frames, _ = self.generate(
                 texts_arr, emb, steps, r, max(style_idx, 0), style_mode,
                 float(min_stop_token))
-            mels = mels[:, :n_frames].cpu().numpy()
-            attn = attn.cpu().numpy()
-            for j in range(texts_arr.shape[0]):
-                mel = mels[j].T                            # (M, T)
-                # trim trailing silence frames
-                keep = np.where(~(mel <= self.cfg.stop_threshold).all(axis=0))[0]
-                if len(keep):
-                    mel = mel[:, : keep[-1] + 1]
-                specs.append(mel)
-                aligns.append(attn[j])
+            with tracing.span("tacotron.to_host"):
+                mels = mels[:, :n_frames].cpu().numpy()
+                attn = attn.cpu().numpy()
+                for j in range(texts_arr.shape[0]):
+                    mel = mels[j].T                        # (M, T)
+                    # trim trailing silence frames
+                    keep = np.where(~(mel <= self.cfg.stop_threshold).all(axis=0))[0]
+                    if len(keep):
+                        mel = mel[:, : keep[-1] + 1]
+                    specs.append(mel)
+                    aligns.append(attn[j])
         return (specs, aligns) if return_alignments else specs
 
     def synthesize_mels_device(self, texts: List[str],

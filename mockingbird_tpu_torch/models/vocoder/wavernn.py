@@ -22,6 +22,10 @@ Two generators, as in the JAX package:
     sample fed back per step, folds of ``gen_target`` + 2·``gen_overlap``
     (8000 + 2·400). It runs as plain PyTorch ops on a card too: the JAX
     package has no kernel for it either (a ``lax.scan``).
+
+Under a profiler session the fused path records its spans (``tracing.py``):
+``wavernn.fold``, ``k1.launch`` (with the launch's F and T),
+``wavernn.labels_wait`` and ``wavernn.finalize``.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ... import resolve_device, seeded
+from ... import resolve_device, seeded, tracing
 from ...config import Config
 from ...dsp import decode_mu_law, inv_preemphasis_np
 from ...ops.wavernn_sample import pack_wavernn_weights, wavernn_sample
@@ -319,18 +323,23 @@ class WaveRnnVocoder:
                 greedy: bool) -> np.ndarray:
         """mel_bp (B, T+2p, M) → labels (B, folds, width): upsample → fold
         on the device → the sampler; only the labels come back."""
-        mels_f, aux_f = self._fold(mel_bp, target, overlap)
+        with tracing.span("wavernn.fold"):
+            mels_f, aux_f = self._fold(mel_bp, target, overlap)
         labels = self._run_sampler(mels_f, aux_f, seed, greedy)
-        return labels.reshape(mel_bp.shape[0], -1, labels.shape[-1]).cpu().numpy()
+        with tracing.span("wavernn.labels_wait"):
+            return labels.reshape(mel_bp.shape[0], -1, labels.shape[-1]).cpu().numpy()
 
     def _run_sampler(self, mels_f: torch.Tensor, aux_f: torch.Tensor, seed: int,
                      greedy: bool) -> torch.Tensor:
         """The sampler over conditioning (F, T, ·) → labels (F, T), with the
         packed weights (packed on first use)."""
-        if self.packed is None:
-            self.packed = pack_wavernn_weights(self.model)
-        return wavernn_sample(self.packed, mels_f, aux_f, seed, self.model.n_classes,
-                              greedy=greedy)
+        with tracing.span("k1.launch") as launch:
+            launch.set("F", mels_f.shape[0])
+            launch.set("T", mels_f.shape[1])
+            if self.packed is None:
+                self.packed = pack_wavernn_weights(self.model)
+            return wavernn_sample(self.packed, mels_f, aux_f, seed, self.model.n_classes,
+                                  greedy=greedy)
 
     @torch.no_grad()
     def generate(self, mels_f: torch.Tensor, aux_f: torch.Tensor, seed: int = 0,
@@ -442,9 +451,10 @@ class WaveRnnVocoder:
         out = []
         for i in range(0, len(preps), group):
             labels = self._sample(stacked[i : i + group], target, overlap, seed + i, greedy)
-            for lab in labels.astype(np.float64):
-                samples = 2.0 * lab / (2 ** cfg.bits - 1.0) - 1.0
-                out.append(self._finalize(samples, overlap, wave_lens[len(out)]))
+            with tracing.span("wavernn.finalize"):
+                for lab in labels.astype(np.float64):
+                    samples = 2.0 * lab / (2 ** cfg.bits - 1.0) - 1.0
+                    out.append(self._finalize(samples, overlap, wave_lens[len(out)]))
         return out
 
     def _finalize(self, samples: np.ndarray, overlap: int, wave_len: int,

@@ -11,7 +11,8 @@ package's param trees, or from ``seed`` when no path is given; a path that
 does not exist raises ``FileNotFoundError``. A vocoder object passed as
 ``vocoder`` is used as it is, in place of one loaded from ``vocoder_fpath``.
 ``make_voice_converter`` builds the PPG one-shot voice-conversion path
-(``models.ppg.VoiceConverter``).
+(``models.ppg.VoiceConverter``). Under a profiler session ``tts_batch``
+records a span tree per call (``tracing.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import resolve_device, tracing
 from .config import sv2tts_audio_config
 from .dsp import decode_mulaw8_to_int16, save_wav
 from .models.encoder import SpeakerEncoderInference
@@ -78,10 +79,11 @@ class VoiceCloningPipeline:
         """texts + reference audio → float32 waveforms."""
         if isinstance(texts, str):
             texts = [texts]
-        embed = self.embed_reference(ref_wav, source_sr)
+        with tracing.span("pipeline.embed"):
+            embed = self.embed_reference(ref_wav, source_sr)
+            embeds = np.tile(embed, (len(texts), 1))
         if self.synthesizer_kind == "vits":
             return self.synthesizer.synthesize(texts)
-        embeds = np.tile(embed, (len(texts), 1))
         specs = self.synthesizer.synthesize_spectrograms(
             texts, embeds, style_idx=style_idx, min_stop_token=min_stop_token,
             steps=steps)
@@ -111,8 +113,13 @@ class VoiceCloningPipeline:
         host-quantised int16 (a ``pcm_format`` there only warns)."""
         if isinstance(texts, str):
             texts = [texts]
-        if not (self.synthesizer_kind == "tacotron"
-                and hasattr(self.vocoder, "vocode_device")):
+        fused = self.synthesizer_kind == "tacotron" and hasattr(self.vocoder, "vocode_device")
+        with tracing.span("tts_batch") as root:
+            root.set("texts", len(texts))
+            root.set("fused", fused)
+            if fused:
+                return self._tts_fused(texts, ref_wav, style_idx, min_stop_token, steps,
+                                       batch_size, source_sr, pcm16, pcm_format, embed)
             wavs = self.clone_voice(texts, ref_wav, style_idx=style_idx,
                                     min_stop_token=min_stop_token, steps=steps,
                                     source_sr=source_sr)
@@ -123,13 +130,19 @@ class VoiceCloningPipeline:
                     f"vocoder={type(self.vocoder).__name__}); returning host-quantised "
                     "int16 instead", stacklevel=2)
             if pcm16 or pcm_format is not None:
-                wavs = [w if w.dtype == np.int16 else
-                        np.round(np.clip(w, -1.0, 1.0) * 32767).astype(np.int16)
-                        for w in wavs]
+                with tracing.span("pipeline.unpack"):
+                    wavs = [w if w.dtype == np.int16 else
+                            np.round(np.clip(w, -1.0, 1.0) * 32767).astype(np.int16)
+                            for w in wavs]
             return wavs
-        embed = (self.embed_reference(ref_wav, source_sr) if embed is None
-                 else np.asarray(embed, np.float32))
-        embeds_all = np.tile(embed, (len(texts), 1)) if embed.ndim == 1 else embed
+
+    def _tts_fused(self, texts, ref_wav, style_idx, min_stop_token, steps, batch_size,
+                   source_sr, pcm16, pcm_format, embed) -> List[np.ndarray]:
+        """``tts_batch``'s fused branch."""
+        with tracing.span("pipeline.embed"):
+            embed = (self.embed_reference(ref_wav, source_sr) if embed is None
+                     else np.asarray(embed, np.float32))
+            embeds_all = np.tile(embed, (len(texts), 1)) if embed.ndim == 1 else embed
         assert embeds_all.shape[0] == len(texts), \
             f"per-text embeds {embeds_all.shape} vs {len(texts)} texts"
         hop = self.vocoder.cfg.hop_size
@@ -141,16 +154,20 @@ class VoiceCloningPipeline:
             mels_dev, frame_lens = self.synthesizer.synthesize_mels_device(
                 chunk, embeds_all[i : i + len(chunk)], style_idx=style_idx,
                 min_stop_token=min_stop_token, steps=steps)
-            pcm_dev = self.vocoder.vocode_device(mels_dev, pcm16=pcm16, pcm_format=pcm_format)
+            with tracing.span("hifigan.vocode"):
+                pcm_dev = self.vocoder.vocode_device(mels_dev, pcm16=pcm16,
+                                                     pcm_format=pcm_format)
             pending.append((len(chunk), pcm_dev, frame_lens))
         wavs: List[np.ndarray] = []
         for n, pcm_dev, frame_lens in pending:
-            pcm = pcm_dev.cpu().numpy()                 # one device-to-host copy per chunk
-            if pcm_format == "mulaw8":
-                pcm = decode_mulaw8_to_int16(pcm)
-            lens = frame_lens.cpu().numpy()
-            for j in range(n):
-                wavs.append(pcm[j, : int(lens[j]) * hop])
+            with tracing.span("pipeline.fetch_wait"):
+                pcm = pcm_dev.cpu().numpy()             # one device-to-host copy per chunk
+                lens = frame_lens.cpu().numpy()
+            with tracing.span("pipeline.unpack"):
+                if pcm_format == "mulaw8":
+                    pcm = decode_mulaw8_to_int16(pcm)
+                for j in range(n):
+                    wavs.append(pcm[j, : int(lens[j]) * hop])
         return wavs
 
     def clone_voice_long(self, text: str, ref_wav: Union[str, Path, np.ndarray],

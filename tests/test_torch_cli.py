@@ -284,21 +284,35 @@ def test_value_window_and_table(capsys):
     assert progbar(3, 8) == jprogbar(3, 8) and progbar(0, 0) == jprogbar(0, 0)
 
 
-def test_profiler_and_rtf(tmp_path, capsys):
-    from mockingbird_tpu_torch.train.profiler import Profiler, RTFMeter, Timer, trace
-    p = Profiler(summarize_every=2)
-    p.tick("x", torch.ones(()))
-    p.tick("x", {"a": [torch.ones(2)]})
-    assert "x" in capsys.readouterr().out and not p.logs
-    Profiler(disabled=True).tick("y")
-    t = Timer()
-    t.cnt("fw")
-    assert "fw" in t.show()
-    m = RTFMeter()
-    with m.measure():
-        pass
-    m.add_audio(16000)
-    assert m.rtf > 0 and "RTF" in m.report()
+def test_profiler_and_rtf(tmp_path):
+    """``trace`` writes the profiler's Chrome trace with the program spans
+    recorded in its block (and none from outside it) on the profiler's
+    timeline: the ``aten::sum`` of the block lies inside the span around
+    it. (The JAX package's ``Profiler``, ``Timer`` and ``RTFMeter`` have
+    no port: the program spans replace them.)"""
+    from mockingbird_tpu_torch import tracing
+    from mockingbird_tpu_torch.train.profiler import trace
+    tracing.clear()
     with trace(tmp_path / "prof"):
         torch.ones(4).sum()
-    assert json.loads((tmp_path / "prof" / "trace.json").read_text())
+        with tracing.span("tts_batch") as root:
+            root.set("texts", 2)
+            with tracing.span("pipeline.unpack"):
+                torch.ones(8).sum()
+    with trace(tmp_path / "later"):
+        pass
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "program_span"}
+    assert set(spans) == {"tts_batch", "pipeline.unpack"}
+    root, unpack = spans["tts_batch"], spans["pipeline.unpack"]
+    assert root["args"]["texts"] == 2 and root["args"]["parent"] is None
+    assert unpack["args"]["parent"] == root["args"]["id"] == unpack["args"]["call"]
+    assert root["ts"] <= unpack["ts"] and unpack["ts"] + unpack["dur"] <= root["ts"] + root["dur"]
+    sums = [e for e in events if e.get("name") == "aten::sum" and e.get("ph") == "X"]
+    inside = [e for e in sums
+              if unpack["ts"] <= e["ts"] and e["ts"] + e["dur"] <= unpack["ts"] + unpack["dur"]]
+    before = [e for e in sums if e["ts"] + e["dur"] <= root["ts"]]
+    assert inside and before and len(inside) + len(before) == len(sums)
+    later = json.loads((tmp_path / "later" / "trace.json").read_text())["traceEvents"]
+    assert not [e for e in later if e.get("cat") == "program_span"]
+    tracing.clear()
