@@ -2,16 +2,24 @@
 
 Port of ``mockingbird_tpu/models/tacotron/inference.py``: text buckets of 32,
 step buckets of 200, the stop rule with ``done_at``, and the trailing-silence
-trim at ``stop_threshold``. The decode loop runs in Python with the state on
-the device; it reads the stop flags back once per step, as the JAX while-loop
-tests them once per step. ``synthesize_mels_device`` keeps the mels on the
-device for the fused pipeline; ``griffin_lim`` inverts a mel without a
-vocoder. Under a profiler session the decode records its spans
-(``tracing.py``): ``tacotron.decode`` with the steps asked and run, each
-``tacotron.step`` and its ``tacotron.step_wait`` on the stop flags.
+trim at ``stop_threshold``. The decode loop runs in Python over a state kept
+in tensors whose addresses stay fixed (``_Decoder``); on a CUDA device one
+decoder step is captured in a CUDA graph and replayed once a step, so the
+host issues a step in one launch. The loop reads the stop flags after every
+``STOP_EVERY`` steps and after the last; when every item has stopped it
+takes the frame count from ``done_at``, so the frames and ``done_at`` are
+those of the JAX while-loop, which tests the flags after each step.
+``synthesize_mels_device`` keeps the mels on the device for the fused
+pipeline; ``griffin_lim`` inverts a mel without a vocoder. Under a profiler
+session the decode records its spans (``tracing.py``): ``tacotron.decode``
+with the steps asked and run, the steps replayed from a graph and the graphs
+captured, each ``tacotron.step`` and each ``tacotron.step_wait`` on the stop
+flags.
 """
 from __future__ import annotations
 
+import collections
+import threading
 from pathlib import Path
 from typing import List, Optional, Union
 
@@ -26,8 +34,134 @@ from ...weights import load_flax, load_npz
 from .model import Tacotron, tacotron_config
 
 
+STOP_EVERY = 16
+"""Decoder steps between two reads of the stop flags. A read waits until
+the card has run every step issued, so a read after each step makes the
+host wait out each step before it issues the next; after 16 the card has
+work queued while the host waits, and a decode whose items have all
+stopped runs at most 15 steps more (~9 ms at batch 128 on an H100)."""
+
+DECODERS = 8
+"""Decode shapes whose state, and on a CUDA device whose captured step, a
+``Synthesizer`` keeps; the least recently used goes first."""
+
+
 def _bucket(n: int, size: int) -> int:
     return max(size, ((n + size - 1) // size) * size)
+
+
+def _leaves(carry) -> tuple:
+    attn_hidden, (c1, h1), (c2, h2), context_vec, cumulative = carry
+    return attn_hidden, c1, h1, c2, h2, context_vec, cumulative
+
+
+class _Decoder:
+    """Greedy decoding at one shape (batch, text bucket, steps, ``r``, stop
+    threshold) over a state in tensors whose addresses stay fixed: the
+    encoder's outputs, the carry, the last frame, the stop flags and
+    ``done_at``, the step count ``t`` and the mel and attention buffers.
+    ``step`` advances the state by one decoder step in place; on a CUDA
+    device it replays the step captured in a CUDA graph at the first decode.
+
+    The PreNet's dropout draws from ``gen``, which the graph reads, so that
+    replay k draws what the k-th step run eagerly would. ``lock`` is held
+    by one decode at a time, from its encoder's draws to ``finish``."""
+
+    def __init__(self, model: Tacotron, r: int, min_stop_token: float, device: torch.device):
+        self.model, self.r, self.min_stop_token, self.device = model, r, min_stop_token, device
+        self.gen = torch.Generator(device=device)
+        self.lock = threading.Lock()
+        self.graph = None
+        self.mels: Optional[torch.Tensor] = None
+
+    def start(self, enc_seq: torch.Tensor, enc_proj: torch.Tensor, char_mask: torch.Tensor,
+              n_groups: int) -> int:
+        """Take the encoder's outputs and reset the rest of the state; on a
+        CUDA device capture the step first if it is not captured yet.
+        Returns the graphs captured: 0 or 1."""
+        if self.mels is None:
+            b, t_text = char_mask.shape
+            dev, m = self.device, self.model.cfg.n_mels
+            self.enc_seq, self.enc_proj, self.char_mask = (
+                torch.zeros_like(x) for x in (enc_seq, enc_proj, char_mask))
+            self.carry = self.model.init_carry(b, t_text, dev)
+            self.prev = torch.zeros(b, m, device=dev)
+            self.done = torch.zeros(b, dtype=torch.bool, device=dev)
+            self.done_at = torch.zeros(b, dtype=torch.int64, device=dev)
+            self.t = torch.zeros(1, dtype=torch.int64, device=dev)
+            self.mels = torch.zeros(n_groups, b, self.r, m, device=dev)
+            self.attn = torch.zeros(n_groups, b, t_text, device=dev)
+        captures = 0
+        if self.graph is None and self.device.type == "cuda" and n_groups:
+            self.graph = self._capture()
+            captures = int(self.graph is not None)
+        for dst, src in ((self.enc_seq, enc_seq), (self.enc_proj, enc_proj),
+                         (self.char_mask, char_mask)):
+            dst.copy_(src)
+        for x in (*_leaves(self.carry), self.prev, self.done, self.t, self.mels, self.attn):
+            x.zero_()
+        self.done_at.fill_(n_groups)
+        return captures
+
+    def _step(self, gen: torch.Generator) -> None:
+        """One decoder step, the stop rule and the writes of its frames,
+        in place."""
+        carry, (mel_r, scores, stop) = self.model.decode_step(
+            self.enc_seq, self.enc_proj, self.char_mask, self.carry, self.prev, self.r, gen)
+        for dst, src in zip(_leaves(self.carry), _leaves(carry)):
+            dst.copy_(src)
+        self.mels.index_copy_(0, self.t, mel_r[None])
+        self.attn.index_copy_(0, self.t, scores[None])
+        # stop rule: stop*10 > min_stop_token, after t*r > 10
+        newly_done = (stop * 10 > self.min_stop_token) & (self.t * self.r > 10)
+        self.done_at.copy_(torch.where(newly_done & ~self.done, self.t + 1, self.done_at))
+        self.done |= newly_done
+        self.prev.copy_(mel_r[:, -1, :])
+        self.t += 1
+
+    def _capture(self):
+        """The step captured in a CUDA graph. A step is run first on the
+        capture's stream, as PyTorch advises, so that the libraries set up
+        their handles and workspaces there; it draws from a generator of its
+        own, so the decode's draws are not moved, and ``start`` resets the
+        state it leaves. The capture registers PyTorch's default CUDA
+        generator as well, so no other thread should draw from that
+        generator while it lasts."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step(torch.Generator(device=self.device).manual_seed(0))
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            self._step(self.gen)
+        return graph
+
+    def step(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self._step(self.gen)
+
+    def stopped(self) -> Optional[int]:
+        """``max(done_at)`` once every item has met the stop rule, else
+        None: where a loop that read the flags after each step would
+        have stopped. Waits for the card."""
+        return int(self.done_at.max()) if bool(self.done.all()) else None
+
+    def finish(self, t: int, issued: int):
+        """The decode's outputs in tensors of their own, which no later
+        decode writes: mels (B, S·r, M), attention (B, S, T_text), ``done_at``
+        in frames. The frames of the ``issued`` steps past ``t`` are zeroed
+        first."""
+        if t < issued:
+            self.mels[t:issued].zero_()
+            self.attn[t:issued].zero_()
+        b, m = self.mels.shape[1], self.mels.shape[-1]
+        mels = self.mels.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+        attn = self.attn.transpose(0, 1).clone(memory_format=torch.contiguous_format)
+        return mels.view(b, -1, m), attn, self.done_at * self.r
 
 
 class Synthesizer:
@@ -54,6 +188,8 @@ class Synthesizer:
         self.seed = seed
         self._variables = variables
         self._model: Optional[Tacotron] = None
+        self._decoders: "collections.OrderedDict[tuple, _Decoder]" = collections.OrderedDict()
+        self._decoders_lock = threading.Lock()
 
     def is_loaded(self) -> bool:
         return self._model is not None
@@ -74,6 +210,22 @@ class Synthesizer:
         if variables is not None:
             load_flax(model, variables)
         self._model = model.to(self.device).eval()
+        with self._decoders_lock:
+            self._decoders.clear()
+
+    def _decoder(self, b: int, t_text: int, n_groups: int, r: int,
+                 min_stop_token: float) -> _Decoder:
+        """The decoder of this shape, made on first use; the least recently
+        used past ``DECODERS`` is dropped."""
+        model = self._model
+        key = (b, t_text, n_groups, r, min_stop_token, next(model.parameters()).dtype)
+        with self._decoders_lock:
+            dec = self._decoders.pop(key, None) or _Decoder(model, r, min_stop_token,
+                                                             self.device)
+            self._decoders[key] = dec
+            if len(self._decoders) > DECODERS:
+                self._decoders.popitem(last=False)
+        return dec
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -83,43 +235,33 @@ class Synthesizer:
 
         Returns (mels (B, max_steps, M), attn (B, S, T_text), n_frames,
         done_at (B,) in frames): ``n_frames`` is where the loop stopped,
-        ``done_at`` where each item first met the stop rule."""
+        ``done_at`` where each item first met the stop rule. The stop flags
+        are read after every ``STOP_EVERY`` steps; steps run past the stop
+        leave the frames after ``n_frames`` zero."""
         model = self._model
         b, t_text = texts.shape
         n_groups = max_steps // r
         with tracing.span("tacotron.decode") as decode:
             decode.set("batch", b)
             decode.set("steps_asked", n_groups)
-            gen = torch.Generator(device=self.device).manual_seed(self.seed)
-            enc_seq, enc_proj, char_mask = model.encode(texts, spk_embed, style_idx,
-                                                        style_mode, gen)
-            m = self.cfg.n_mels
-            mel_buf = torch.zeros(n_groups, b, r, m, device=self.device)
-            attn_buf = torch.zeros(n_groups, b, t_text, device=self.device)
-            carry = model.init_carry(b, t_text, self.device)
-            prev = torch.zeros(b, m, device=self.device)
-            done = torch.zeros(b, dtype=torch.bool, device=self.device)
-            done_at = torch.full((b,), n_groups, dtype=torch.int64, device=self.device)
-            t = 0
-            while t < n_groups:
-                with tracing.span("tacotron.step"):
-                    carry, (mel_r, scores, stop) = model.decode_step(
-                        enc_seq, enc_proj, char_mask, carry, prev, r, gen)
-                    mel_buf[t] = mel_r
-                    attn_buf[t] = scores
-                    # stop rule: stop*10 > min_stop_token, after t*r > 10
-                    newly_done = (stop * 10 > min_stop_token) & (t * r > 10)
-                    done_at = torch.where(newly_done & ~done, t + 1, done_at)
-                    done = done | newly_done
-                    prev = mel_r[:, -1, :]
-                    t += 1
-                    with tracing.span("tacotron.step_wait"):
-                        finished = bool(done.all())
-                if finished:
-                    break
-            decode.set("steps_run", t)
-            mels = mel_buf.transpose(0, 1).reshape(b, max_steps, m)
-        return mels, attn_buf.transpose(0, 1), t * r, done_at * r
+            dec = self._decoder(b, t_text, n_groups, r, float(min_stop_token))
+            with dec.lock:
+                dec.gen.manual_seed(self.seed)
+                decode.set("captures", dec.start(
+                    *model.encode(texts, spk_embed, style_idx, style_mode, dec.gen), n_groups))
+                issued, t = 0, None
+                while t is None and issued < n_groups:
+                    with tracing.span("tacotron.step"):
+                        dec.step()
+                        issued += 1
+                        if issued % STOP_EVERY == 0 or issued == n_groups:
+                            with tracing.span("tacotron.step_wait"):
+                                t = dec.stopped()
+                t = n_groups if t is None else t
+                mels, attn, done_at = dec.finish(t, issued)
+            decode.set("steps_run", issued)
+            decode.set("graphed", issued if dec.graph is not None else 0)
+        return mels, attn, t * r, done_at
 
     def _encode_texts(self, texts: List[str]):
         with tracing.span("tacotron.text"):

@@ -1,7 +1,8 @@
 """The hand-written kernels against their plain versions on a CUDA card:
 the WaveRNN sampler (both conditioning layouts) and monotonic alignment
-search; and the voice-conversion models (no kernel) in f32 on the card
-against the same models on the CPU.
+search; the voice-conversion models (no kernel) in f32 on the card
+against the same models on the CPU; and Tacotron's decode replayed from a
+captured CUDA graph against the same decode stepped from Python.
 
 These tests need the card and skip without one. On the card's machine (no
 JAX there, so without the JAX-side conftest) they run as
@@ -448,6 +449,112 @@ def test_tacotron_bf16_step_on_card(card):
     for name, buf in gpu.named_buffers():
         if name.endswith(("bias_hh_rz", "bias_ih")):
             assert not bool(buf.ne(0).any()), name
+
+
+def _synthesizer(card, seed=3):
+    """The full-width synthesizer with weights drawn from ``seed``,
+    dropout on, as inference runs it."""
+    from mockingbird_tpu_torch.models.tacotron import Synthesizer
+    syn = Synthesizer(verbose=False, seed=seed, device=card)
+    syn.load()
+    return syn
+
+
+def _decode_inputs(card, b, seed):
+    """``b`` texts of 9-32 symbols in the bucket of 32 and unit speaker
+    embeddings."""
+    rng = np.random.RandomState(seed)
+    texts = np.zeros((b, 32), np.int64)
+    for j in range(b):
+        n = rng.randint(9, 33)
+        texts[j, :n] = rng.randint(1, 75, n)
+    spk = rng.randn(b, 256).astype(np.float32)
+    spk /= np.linalg.norm(spk, axis=1, keepdims=True)
+    return torch.from_numpy(texts).to(card), torch.from_numpy(spk).to(card)
+
+
+def _decode(syn, texts, spk, min_stop_token=11.0):
+    """400 frames asked (200 steps at r = 2) → mels, attention, frames,
+    ``done_at``."""
+    return syn.generate(texts, spk, 400, 2, 0, "token", min_stop_token)
+
+
+def _equal(a, b):
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
+            and torch.equal(a[3], b[3]))
+
+
+@pytest.fixture
+def eager_steps(monkeypatch):
+    """Decoders that capture no graph: each step runs from Python."""
+    from mockingbird_tpu_torch.models.tacotron import inference
+    monkeypatch.setattr(inference._Decoder, "_capture", lambda self: None)
+
+
+@pytest.mark.parametrize("min_stop_token", [11.0, 5.0], ids=["no_stop", "stop"])
+@pytest.mark.parametrize("b", [16, 128])
+def test_graphed_decode_equals_eager_bit_for_bit(card, request, b, min_stop_token):
+    """The decode replayed from a captured CUDA graph, dropout drawn from
+    the seeded generator, equals the same decode stepped from Python bit
+    for bit: the first (which captures) and the second (which only
+    replays); with the stop rule off and with it on (with seeded weights
+    items stop early, so the loop ends at a read of the flags past the
+    last stop)."""
+    syn = _synthesizer(card)
+    texts, spk = _decode_inputs(card, b, 0)
+    first, second = _decode(syn, texts, spk, min_stop_token), _decode(syn, texts, spk,
+                                                                      min_stop_token)
+    request.getfixturevalue("eager_steps")
+    eager = _decode(_synthesizer(card), texts, spk, min_stop_token)
+    torch.cuda.synchronize()
+    assert _equal(first, eager) and _equal(second, eager)
+    if min_stop_token == 11.0:
+        assert first[2] == 400
+    assert not first[0][:, first[2]:].any()
+
+
+def test_a_later_decode_leaves_returned_tensors_alone(card):
+    """Every tensor a decode returns is its own: a second decode of other
+    texts at the same shape, which replays the same graph over the same
+    state, leaves the first call's mels, attention and ``done_at`` as
+    they were."""
+    syn = _synthesizer(card)
+    first = _decode(syn, *_decode_inputs(card, 16, 1))
+    kept = [first[k].clone() for k in (0, 1, 3)]
+    second = _decode(syn, *_decode_inputs(card, 16, 2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, first[k]) for a, k in zip(kept, (0, 1, 3)))
+    assert not torch.equal(first[0], second[0])
+
+
+def test_a_second_shape_captures_a_second_graph(card, request):
+    """A second batch size captures a graph of its own and is exact; the
+    ``tacotron.decode`` span counts the graphs captured and the steps
+    replayed: 1 and 200 for a new shape, 0 and 200 for a known one, 0 and 0
+    stepped from Python."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mockingbird_tpu_torch import tracing
+    syn = _synthesizer(card)
+    inputs = [_decode_inputs(card, 16, 4), _decode_inputs(card, 16, 5),
+              _decode_inputs(card, 8, 6)]
+    tracing.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            graphed = [_decode(syn, *x) for x in inputs]
+        request.getfixturevalue("eager_steps")
+        eager_syn = _synthesizer(card)
+        with profile(activities=[ProfilerActivity.CUDA]):
+            eager = [_decode(eager_syn, *x) for x in inputs]
+        torch.cuda.synchronize()
+        decodes = [s.attrs for s in tracing.spans() if s.name == "tacotron.decode"]
+    finally:
+        tracing.clear()
+    assert [(d["batch"], d["captures"], d["graphed"], d["steps_run"]) for d in decodes] == [
+        (16, 1, 200, 200), (16, 0, 200, 200), (8, 1, 200, 200),
+        (16, 0, 0, 200), (16, 0, 0, 200), (8, 0, 0, 200)]
+    assert len(syn._decoders) == 2
+    assert all(_equal(g, e) for g, e in zip(graphed, eager))
 
 
 def test_mol_loss_and_sampler_on_card_match_cpu(card):

@@ -2,7 +2,9 @@
 encode (CBHG, GST, speaker concat), N decode steps with LSA, the stop rule
 with ``done_at``, the postnet, and ``Synthesizer.synthesize_spectrograms``.
 Prenet dropout is off on both sides; BatchNorm running statistics are
-perturbed from a numpy seed so that they matter. float32, atol 1e-4."""
+perturbed from a numpy seed so that they matter. float32, atol 1e-4. And
+the decode loop's stop flags, read once every 16 steps, against a loop that
+reads them after each step."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +13,7 @@ import torch
 
 from mockingbird_tpu.models.tacotron import Synthesizer as JSynth, Tacotron as JTaco
 from mockingbird_tpu.models.tacotron import tacotron_config as jconfig
-from mockingbird_tpu_torch.models.tacotron import Synthesizer as TSynth
+from mockingbird_tpu_torch.models.tacotron import Synthesizer as TSynth, Tacotron as TTaco
 from mockingbird_tpu_torch.models.tacotron import tacotron_config as tconfig
 
 SMALL = dict(embed_dims=32, encoder_dims=16, decoder_dims=16, postnet_dims=32,
@@ -131,3 +133,72 @@ def test_synthesize_spectrograms_matches_jax(synths):
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o, r, atol=ATOL)
 
+
+
+# the step (counted from 1, as ``done_at`` counts) at which each of four
+# items first meets the stop rule, 0 for never; of the 40 steps asked the
+# flags are read after steps 16, 32 and 40, and the rule holds from step 7
+# (t·r > 10 at r = 2)
+STOPS = {
+    "inside_first_16": [9, 7, 12, 10],
+    "on_a_boundary": [16, 9, 7, 12],
+    "after_a_boundary": [17, 9, 16, 7],
+    "on_the_second_boundary": [32, 17, 9, 16],
+    "never": [9, 0, 17, 16],
+}
+
+
+def _per_step_loop(model, texts, spk, seed, max_steps, r, min_stop_token):
+    """The decode loop reading the stop flags after every step."""
+    gen = torch.Generator().manual_seed(seed)
+    enc = model.encode(texts, spk, 0, "token", gen)
+    b, n, m = texts.shape[0], max_steps // r, model.cfg.n_mels
+    mel_buf = torch.zeros(n, b, r, m)
+    carry, prev = model.init_carry(b, texts.shape[1]), torch.zeros(b, m)
+    done = torch.zeros(b, dtype=torch.bool)
+    done_at = torch.full((b,), n, dtype=torch.int64)
+    t = 0
+    while t < n:
+        carry, (mel_r, _, stop) = model.decode_step(*enc, carry, prev, r, gen)
+        mel_buf[t] = mel_r
+        newly_done = (stop * 10 > min_stop_token) & (t * r > 10)
+        done_at = torch.where(newly_done & ~done, t + 1, done_at)
+        done = done | newly_done
+        prev = mel_r[:, -1, :]
+        t += 1
+        if bool(done.all()):
+            break
+    return mel_buf.transpose(0, 1).reshape(b, max_steps, m), t * r, done_at * r
+
+
+@pytest.mark.parametrize("case", list(STOPS))
+def test_stop_flags_read_every_16_steps_match_a_per_step_loop(monkeypatch, case):
+    """Frames, ``done_at`` and the mels (zero after the stop) equal those of
+    a loop that reads the flags after each step, with dropout on; the stop
+    head's output is replaced by a schedule so that items stop where
+    ``STOPS`` says."""
+    stops = STOPS[case]
+    step, calls = TTaco.decode_step, [0]
+
+    def scheduled(self, *args):
+        carry, (mel_r, scores, _) = step(self, *args)
+        calls[0] += 1
+        return carry, (mel_r, scores, torch.tensor([float(0 < s <= calls[0]) for s in stops]))
+    monkeypatch.setattr(TTaco, "decode_step", scheduled)
+    syn = TSynth(cfg=tconfig().merge(dict(SMALL, prenet_dropout=True)), verbose=False,
+                 seed=7, device="cpu")
+    syn.load()
+    rng = np.random.RandomState(4)
+    texts = torch.from_numpy(rng.randint(1, 75, (4, 32)))
+    texts[1:, 20:] = 0
+    spk = torch.from_numpy(rng.randn(4, 8).astype(np.float32))
+    with torch.no_grad():
+        ref_mels, ref_n, ref_done = _per_step_loop(syn._model, texts, spk, 7, 80, 2, 5.0)
+        calls[0] = 0
+        mels, _, n, done_at = syn.generate(texts, spk, 80, 2, 0, "token", 5.0)
+    last = max(stops) if 0 not in stops else 40
+    assert ref_n == n == 2 * last
+    want = [2 * (s or 40) for s in stops]
+    assert ref_done.tolist() == done_at.tolist() == want
+    np.testing.assert_array_equal(mels.numpy(), ref_mels.numpy())
+    assert not mels[:, n:].any() and mels[:, :n].any(dim=-1).all()

@@ -9,6 +9,7 @@ The card case skips without one. On the card's machine it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_tracing.py -q
 """
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -98,8 +99,8 @@ def test_spans_on_and_off_give_the_same_output(which, request):
 def _tree(pipe, children, fused):
     """One profiled call: every span shares the root's call id, lies inside
     its parent, and the root's children are ``children``; the decode ran
-    the steps it was asked, one ``tacotron.step`` span each, each holding
-    one ``tacotron.step_wait``."""
+    the steps it was asked, eagerly on the CPU, one ``tacotron.step`` span
+    each; every 16th step and the last hold one ``tacotron.step_wait``."""
     _profiled(lambda: pipe.tts_batch(TEXTS, REF_WAV, **CALL))
     found = tracing.spans()
     roots = [s for s in found if s.parent is None]
@@ -116,12 +117,14 @@ def _tree(pipe, children, fused):
     assert {s.name for s in found if s.parent == root.id} == children
     decode = [s for s in found if s.name == "tacotron.decode"]
     assert len(decode) == 1
-    assert decode[0].attrs == {"batch": len(TEXTS), "steps_asked": STEPS, "steps_run": STEPS}
-    steps = [s for s in found if s.name == "tacotron.step"]
+    assert decode[0].attrs == {"batch": len(TEXTS), "steps_asked": STEPS, "steps_run": STEPS,
+                               "graphed": 0, "captures": 0}
+    steps = sorted((s for s in found if s.name == "tacotron.step"), key=lambda s: s.start_ns)
     waits = [s for s in found if s.name == "tacotron.step_wait"]
-    assert len(steps) == len(waits) == STEPS
+    assert len(steps) == STEPS
     assert all(s.parent == decode[0].id for s in steps)
-    assert sorted(w.parent for w in waits) == sorted(s.id for s in steps)
+    assert sorted(w.parent for w in waits) == [steps[k].id for k in (*range(15, STEPS, 16),
+                                                                      STEPS - 1)]
     return found
 
 
@@ -138,6 +141,27 @@ def test_staged_call_span_tree(staged):
     names = [s.name for s in sorted(found, key=lambda s: s.start_ns)
              if s.name.startswith(("wavernn.", "k1."))]
     assert names == ["wavernn.fold", "k1.launch", "wavernn.labels_wait", "wavernn.finalize"]
+
+
+def test_graphed_share_reads_the_decode_spans(monkeypatch):
+    """The benchmark's reader of ``tacotron.graphed_pct`` on hand-made
+    decodes: Σ ``graphed`` over Σ ``steps_run`` inside the window; None
+    where a decode span has no ``graphed``, as a program that does not
+    count it records, or where no decode lies inside the window."""
+    from benchmark.harness import registry
+    read = registry.reader("tacotron.graphed_pct").read
+    run = SimpleNamespace(spans=[("window", 0.0, 1.0, 100, 200)])
+
+    def decode(steps_run, t0=110, **graphed):
+        return tracing.Span("tacotron.decode", t0, t0 + 10, attrs=dict(steps_run=steps_run,
+                                                                     **graphed))
+    for found, want in (([decode(400, graphed=400), decode(100, graphed=0),
+                          decode(400, t0=300, graphed=0)], 80.0),
+                        ([decode(400, graphed=0)], 0.0),
+                        ([decode(400, graphed=400), decode(400)], None),
+                        ([decode(400, t0=300, graphed=400)], None)):
+        monkeypatch.setattr(tracing, "spans", lambda: found)
+        assert read(run) == (want if want is None else pytest.approx(want))
 
 
 def test_self_time_and_window():
