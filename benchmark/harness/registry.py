@@ -1,12 +1,15 @@
 """Find a cell's pieces by name: ``BENCHMARK.json`` at the root of the
 checkout lists the cells, configurations and metrics; a configuration's
-sizes are the JSON file its entry names; a traffic mix is
-``benchmark/traffic/<traffic>.json``; a metric is read by
-``benchmark/metrics/<metric>.py``. Adding a cell, a configuration, a mix or a
-metric adds files and entries and edits none of this code.
+sizes are the JSON file its entry names, and its ``"family"`` key names the
+module ``benchmark/families/<family>.py`` that builds, drives and checks
+it; a traffic mix is ``benchmark/traffic/<traffic>.json``; a metric is read
+by ``benchmark/metrics/<metric>.py``. Adding a family, a cell, a
+configuration, a mix or a metric adds files and entries and edits none of
+this code.
 """
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -31,8 +34,12 @@ def cell(name: str, spec: dict = None) -> dict:
                        f"(cells: {', '.join(w['name'] for w in spec['workloads'])})")
     entry = found[0]
     cfg_entry = next(c for c in spec["configs"] if c["name"] == entry["config"])
+    cfg = json.loads((ROOT / cfg_entry["file"]).read_text())
+    if "family" not in cfg:
+        raise KeyError(f"{cfg_entry['file']}: no \"family\" key (the module "
+                       f"benchmark/families/<family>.py that runs the configuration)")
     return {"entry": entry,
-            "config": json.loads((ROOT / cfg_entry["file"]).read_text()),
+            "config": cfg,
             "traffic": json.loads((BENCH_DIR / "traffic" / f"{entry['traffic']}.json").read_text())}
 
 
@@ -64,3 +71,13 @@ def reader(metric: str) -> ModuleType:
         spec.loader.exec_module(mod)
         _readers[metric] = mod
     return _readers[metric]
+
+
+def family(cfg: dict) -> ModuleType:
+    """The module ``benchmark/families/<family>.py`` of configuration
+    ``cfg`` (its ``"family"`` key), imported on first use."""
+    name = cfg["family"]
+    if not name.isidentifier() or not (BENCH_DIR / "families" / f"{name}.py").is_file():
+        raise ValueError(f"configuration {cfg.get('name')!r}: no family module "
+                         f"benchmark/families/{name}.py")
+    return importlib.import_module(f"{__package__.rpartition('.')[0]}.families.{name}")

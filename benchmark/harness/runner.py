@@ -1,13 +1,17 @@
 """One run of one cell: set-up, the measured window, the metrics, the check.
 
+What depends on the model is the cell's family's
+(``benchmark/families/<family>.py``, named by the configuration's
+``"family"`` key); this module is the same for every family.
+
 Set-up (counted in ``setup_s``, from the process's start to the first
 measured call): import the port, initialise the device, write the seeded
-weights and the reference voices, build the pipeline (which loads the
-weights), build K1 where the configuration samples through it, and warm up:
-every voice's embedding (the pipeline caches it, as it would for a
-returning user) and one call of the cell's own shape.
+weights (``weights.write``, the family's parts) and the family's input files,
+build the family's system (which loads the weights) and the kernels it
+needs, and warm up: the family's warm-up, then one call of the cell's own
+shape.
 
-The window: calls back to back, each with new texts (drawn before the
+The window: calls back to back, each with new inputs (drawn before the
 window for as many calls as the warm-up call's time says it will hold),
 from the start of the first to the end of the last one that started before
 ``seconds`` had passed. ``audio_s_per_s`` is the audio all of them returned over all that
@@ -23,12 +27,12 @@ import tempfile
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import torch
 
-from . import check, registry, system, trace as tracing, traffic, weights
-from .. import flops
+from . import check, registry, system, trace as tracing, weights
 
 BANNED = ("jax", "jaxlib", "flax", "orbax", "mockingbird_tpu")
 
@@ -43,39 +47,29 @@ class Run:
     setup_s: float
     window_s: float = 0.0
     audio_s: float = 0.0
-    calls: List[check.CallOut] = field(default_factory=list)
+    calls: List[object] = field(default_factory=list)     # the family's call outputs
     spans: List[tuple] = field(default_factory=list)
     trace: Optional[dict] = None
-    k1_launches: Optional[int] = None
+    counters: Dict[str, int] = field(default_factory=dict)  # the family's, over the window
     window_peak_bytes: int = 0
 
     @property
+    def family(self) -> ModuleType:
+        return registry.family(self.cfg)
+
+    @property
     def sample_rate(self) -> int:
-        return self.cfg["vocoder"]["sample_rate"]
+        return self.family.sample_rate(self.cfg)
 
     def span_s(self, name: str) -> float:
         return sum(s[2] - s[1] for s in self.spans if s[0] == name)
 
     def decode_steps(self) -> int:
-        steps = check.bucket(self.mix["tts_batch"]["steps"], 200)
-        return len(self.calls) * steps // self.cfg["synthesizer"]["r"]
+        return self.family.decode_steps(self)
 
     def model_flops(self) -> float:
-        """FLOP of every call in the window (``benchmark/flops``)."""
-        syn, voc = self.cfg["synthesizer"], self.cfg["vocoder"]
-        steps = check.bucket(self.mix["tts_batch"]["steps"], 200)
-        total = 0.0
-        for out in self.calls:
-            b = len(out.texts)
-            t_text = check.bucket(max(len(traffic.symbol_ids(t)) for t in out.texts), 32)
-            total += flops.tacotron(syn, b, t_text, steps // syn["r"])
-            if voc["arch"] == "hifigan":
-                total += flops.hifigan(voc, b, steps)
-            else:
-                total += flops.wavernn_upsampler(voc, b, check.bucket(steps, 100))
-                total += sum(flops.k1(voc, lab.shape[0], lab.shape[1])[0]
-                             for _, lab in out.launches)
-        return total
+        """FLOP of every call in the window."""
+        return self.family.model_flops(self)
 
 
 def _log(*parts) -> None:
@@ -109,53 +103,43 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t_start: float,
 
 
 def _run(name, cfg, mix, dev, seed, seconds, trace, t_start, split, tmp) -> dict:
+    fam = registry.family(cfg)
     t = time.perf_counter()
     paths = weights.write(cfg, seed, tmp, dev)
-    voices = traffic.write_voices(mix, seed, tmp)
-    split["weights_and_voices"] = time.perf_counter() - t
+    inputs = fam.write_inputs(mix, seed, tmp)
+    split["weights_and_inputs"] = time.perf_counter() - t
 
     t = time.perf_counter()
     rec = system.Recorder(dev, trace)
-    dropout_seed = weights.seed_of(seed, 3)
-    pipe = system.build(cfg, paths, dev, dropout_seed, rec)
+    sut = fam.build(cfg, mix, paths, inputs, dev, seed, rec)
     split["load"] = time.perf_counter() - t
     t = time.perf_counter()
-    if cfg["vocoder"]["arch"] == "wavernn" and dev.type == "cuda":
-        from mockingbird_tpu_torch.ops import build
-        build.load("wavernn_sample")
+    fam.kernels(cfg, dev)
     split["kernel_build"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    kwargs = traffic.call_args(mix)
+    planned: Dict[int, object] = {}
 
-    planned: Dict[int, list] = {}
+    def call(i: int):
+        drawn = planned.pop(i) if i in planned else fam.draw(mix, seed, i)
+        return fam.call(sut, drawn, i)
 
-    def call(i: int) -> check.CallOut:
-        texts = planned.pop(i) if i in planned else traffic.texts(mix, seed, i)
-        voice = voices[traffic.voice_of(mix, seed, i)]
-        n_mels, n_launches = len(rec.mels), len(rec.launches)
-        with rec.span("call"):
-            pcm = pipe.tts_batch(texts, str(voice), **kwargs)
-        return check.CallOut(texts, voice, pcm, rec.mels[n_mels] if len(rec.mels) > n_mels else None,
-                             rec.launches[n_launches:])
-
-    for v in voices:
-        pipe.embed_reference(str(v))
+    fam.warm(sut)
     t_call = time.perf_counter()
     call(-1)
     rec.sync()
     rec.reset()
-    # the texts of the calls the window is expected to hold are drawn
+    # the inputs of the calls the window is expected to hold are drawn
     # before it, so that the caller's own work between calls stays out
     expected = int(seconds / max(time.perf_counter() - t_call, 1e-3)) + 2
-    planned.update({i: traffic.texts(mix, seed, i) for i in range(expected)})
+    planned.update({i: fam.draw(mix, seed, i) for i in range(expected)})
     split["warmup"] = time.perf_counter() - t
     setup_s = time.perf_counter() - t_start
     _log("setup_s split: " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
          + f", other {setup_s - sum(split.values()):.3f} s")
 
     run = Run(name, cfg, mix, dev, setup_s)
-    k1_before = system.k1_launches()
+    before = fam.counters()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     prof = None
@@ -173,10 +157,10 @@ def _run(name, cfg, mix, dev, seed, seconds, trace, t_start, split, tmp) -> dict
     if prof is not None:
         prof.__exit__(None, None, None)
     run.spans = list(rec.spans)
-    run.k1_launches = system.k1_launches() - k1_before
+    run.counters = {k: v - before[k] for k, v in fam.counters().items()}
     if dev.type == "cuda":
         run.window_peak_bytes = torch.cuda.max_memory_allocated(dev)
-    run.audio_s = sum(len(w) for out in run.calls for w in out.pcm) / run.sample_rate
+    run.audio_s = sum(fam.samples(out) for out in run.calls) / fam.sample_rate(cfg)
     if prof is not None:
         t = time.perf_counter()
         spans = [(s[0], s[3], s[4]) for s in run.spans]
@@ -186,18 +170,15 @@ def _run(name, cfg, mix, dev, seed, seconds, trace, t_start, split, tmp) -> dict
         _log(f"trace read in {time.perf_counter() - t:.3f} s")
 
     # the program's state goes before the reference runs; its outputs stay
-    del pipe
+    del sut
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    ref = check.Reference(cfg, paths, dev)
-    numbers = check.readings(ref, mix, run.calls, seed, dropout_seed)
-    failed = check.count_failed(cfg, mix, run.calls)
+    numbers = fam.readings(cfg, mix, paths, dev, run.calls, seed)
+    failed = fam.failed(cfg, mix, run.calls)
     _log(f"check took {time.perf_counter() - t:.3f} s")
-    limits = cfg["limits"]
-    checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
-    correct = failed == 0 and all(v <= limits[k] for k, v in numbers.items())
+    correct, checks = check.judge(numbers, failed, cfg["limits"])
 
     metrics = {}
     for m in registry.metrics_of(name, trace):
@@ -207,7 +188,7 @@ def _run(name, cfg, mix, dev, seed, seconds, trace, t_start, split, tmp) -> dict
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
                    "count": 1, "memory_peak_bytes": int(run.window_peak_bytes)}
-    result = {"correct": bool(correct), "attempted": sum(len(c.texts) for c in run.calls),
+    result = {"correct": bool(correct), "attempted": sum(fam.attempted(c) for c in run.calls),
               "failed": failed, "metrics": metrics, "device": device_info}
     if run.trace is not None:
         device_info["busy_s"] = run.trace["busy_s"]

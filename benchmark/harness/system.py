@@ -1,16 +1,13 @@
-"""The system under test: the port's ``VoiceCloningPipeline`` built from the
-written weights, and the benchmark's own wrappers on its instances.
-
-Every run keeps what the timed path hands from one layer to the next, for
-the check after the window: the mels the synthesizer returns (on the
-device; the fused branch never copies them) and, through WaveRNN, the
-labels of each sampler launch with its seed. A traced run also records a
-span around each call into the synthesizer and the vocoder, ended by a
-synchronise.
+"""What the harness gives every family's system under test: a ``Recorder``
+of the benchmark's own spans and of the captures a family's wrappers keep
+for the check after the window, and ``wrap``, which puts such a wrapper on a
+method of one instance. The systems themselves are built by the families
+(``benchmark/families/<family>.py`` ``build``).
 """
 from __future__ import annotations
 
 import time
+from collections import defaultdict
 from typing import Dict, List
 
 import torch
@@ -24,8 +21,7 @@ class Recorder:
         self.reset()
 
     def reset(self) -> None:
-        self.mels: List[object] = []        # per synthesizer call: device mels or host specs
-        self.launches: List[tuple] = []     # per sampler launch: (seed, labels)
+        self.captures: Dict[str, List[object]] = defaultdict(list)   # by the family's names
         self.spans: List[tuple] = []        # (name, start s, end s, start ns, end ns)
 
     def sync(self) -> None:
@@ -49,59 +45,11 @@ class Recorder:
         return _Span()
 
 
-def _wrap(obj, method: str, around):
+def wrap(obj, method: str, around) -> None:
+    """Replace ``obj.method`` on this instance by ``around(inner, *args,
+    **kwargs)``."""
     inner = getattr(obj, method)
 
     def wrapped(*args, **kwargs):
         return around(inner, *args, **kwargs)
     setattr(obj, method, wrapped)
-
-
-def build(cfg: dict, paths: Dict[str, object], device: torch.device, dropout_seed: int,
-          rec: Recorder):
-    """The pipeline of configuration ``cfg`` on ``device``, its weights
-    loaded from ``paths``; ``rec`` gets the captures and spans."""
-    from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
-
-    vocoder = None
-    if cfg["vocoder"]["arch"] == "wavernn":
-        from mockingbird_tpu_torch.models.vocoder.wavernn import WaveRnnVocoder
-        vocoder = WaveRnnVocoder(paths["vocoder"], cfg=cfg["vocoder"], verbose=False,
-                                 device=device)
-    pipe = VoiceCloningPipeline(encoder_fpath=paths["encoder"],
-                                synthesizer_fpath=paths["synthesizer"],
-                                vocoder_fpath=None if vocoder else paths["vocoder"],
-                                vocoder=vocoder, verbose=False, seed=dropout_seed,
-                                device=device)
-    pipe.synthesizer.load()
-    syn, voc = pipe.synthesizer, pipe.vocoder
-
-    def synthesizer(inner, *args, **kwargs):
-        with rec.span("tacotron"):
-            out = inner(*args, **kwargs)
-        rec.mels.append(out[0] if isinstance(out, tuple) else out)
-        return out
-
-    def vocoder_span(inner, *args, **kwargs):
-        with rec.span("vocoder"):
-            return inner(*args, **kwargs)
-
-    def sampler(inner, mels_f, aux_f, seed, greedy):
-        labels = inner(mels_f, aux_f, seed, greedy)
-        rec.launches.append((seed, labels))
-        return labels
-
-    if hasattr(voc, "vocode_device"):
-        _wrap(syn, "synthesize_mels_device", synthesizer)
-        _wrap(voc, "vocode_device", vocoder_span)
-    else:
-        _wrap(syn, "synthesize_spectrograms", synthesizer)
-        _wrap(voc, "infer_waveform_batch", vocoder_span)
-        _wrap(voc, "_run_sampler", sampler)
-    return pipe
-
-
-def k1_launches() -> int:
-    """The port's count of WaveRNN sampler launches (time-major layout)."""
-    from mockingbird_tpu_torch.ops.wavernn_sample import wavernn_sample
-    return int(wavernn_sample.launches)

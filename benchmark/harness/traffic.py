@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import random
 from pathlib import Path
-from typing import Dict, List
+from typing import List
 
 import numpy as np
 from scipy.io import wavfile
@@ -99,7 +99,3 @@ def write_voices(mix: dict, seed: int, out_dir: Path) -> List[Path]:
         paths.append(path)
     return paths
 
-
-def call_args(mix: dict) -> Dict[str, object]:
-    """The keyword arguments of every ``tts_batch`` call of the mix."""
-    return dict(mix["tts_batch"])

@@ -1,25 +1,26 @@
 """Seeded weights for one configuration, written as the ``.npz`` exports
-(flax layout, ``reference/layout.py``) that the port's loaders take and the
-reference reads, each beside a ``.json`` sidecar of its part of the
-configuration.
+that the port's loaders take and the reference reads, each beside a
+``.json`` sidecar of its part of the configuration. The parts and their
+leaves are the family's (``benchmark/families/<family>.py`` ``parts``).
 
 The values are drawn on the device in one call (a ``torch.Generator`` there,
 seeded from the run's seed) and shaped per leaf: dense and convolution
 kernels N(0, 1/fan_in); biases N(0, 0.05²); weight-normed directions N(0, 1)
 with gains 1 + N(0, 0.1²); BatchNorm scale 1 + N(0, 0.1²), bias and mean
 N(0, 0.1²), variance 1 + 0.2·|N(0, 1)|; embeddings N(0, 1), style tokens
-N(0, 0.5²); WaveRNN's smoothing kernels the box 1/(2s + 1) they start from.
+N(0, 0.5²); smoothing kernels the box 1/(2s + 1) they start from. A family
+may add kinds of its own (``SHAPES``).
 """
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..reference import layout
+from . import registry
 
 
 def seed_of(seed: int, purpose: int) -> int:
@@ -28,17 +29,11 @@ def seed_of(seed: int, purpose: int) -> int:
         1, np.uint64)[0] >> np.uint64(1))
 
 
-def parts(cfg: dict) -> List[Tuple[str, str, list]]:
-    """(part, file name, leaves) of a configuration."""
-    voc = cfg["vocoder"]
-    vocoder = layout.hifigan(voc) if voc["arch"] == "hifigan" else layout.wavernn(voc)
-    return [("encoder", "encoder.npz", layout.ge2e(**cfg["encoder"])),
-            ("synthesizer", "synthesizer.npz", layout.tacotron(cfg["synthesizer"])),
-            ("vocoder", f"vocoder_{voc['arch']}.npz", vocoder)]
-
-
-def _shape(view: torch.Tensor, key: str, shape, kind: str) -> None:
-    if kind == "kernel":
+def _shape(view: torch.Tensor, key: str, shape, kind: str,
+           extra: Optional[Dict[str, Callable]] = None) -> None:
+    if extra and kind in extra:
+        extra[kind](view, shape)
+    elif kind == "kernel":
         view.mul_(float(np.prod(shape[:-1])) ** -0.5)
     elif kind == "bias":
         view.mul_(0.05)
@@ -60,7 +55,9 @@ def write(cfg: dict, seed: int, out_dir: Path, device) -> Dict[str, Path]:
     """Draw every part's weights and write ``<part>.npz`` + ``.json``
     into ``out_dir``; returns {part: path}."""
     out_dir = Path(out_dir)
-    plan = parts(cfg)
+    family = registry.family(cfg)
+    plan = family.parts(cfg)
+    extra = getattr(family, "SHAPES", None)
     total = sum(int(np.prod(s)) for _, _, leaves in plan for _, s, _ in leaves)
     gen = torch.Generator(device=device).manual_seed(seed_of(seed, 1))
     flat = torch.randn(total, generator=gen, device=device)
@@ -69,7 +66,7 @@ def write(cfg: dict, seed: int, out_dir: Path, device) -> Dict[str, Path]:
     for _, _, leaves in plan:
         for key, shape, kind in leaves:
             n = int(np.prod(shape))
-            _shape(flat[offset:offset + n].view(shape), key, shape, kind)
+            _shape(flat[offset:offset + n].view(shape), key, shape, kind, extra)
             spans.append((key, shape, offset, n))
             offset += n
     host = flat.cpu().numpy()

@@ -6,6 +6,8 @@ from benchmark.harness import check
 
 
 def read(run):
+    if run.cfg["family"] != "sv2tts":
+        return None
     voc = run.cfg["vocoder"]
     t = run.span_s("vocoder")
     if voc["arch"] != "hifigan" or t <= 0:

@@ -7,7 +7,8 @@ from benchmark.harness import trace
 
 
 def read(run):
-    if run.trace is None or run.cfg["vocoder"]["arch"] != "wavernn":
+    if (run.trace is None or run.cfg["family"] != "sv2tts"
+            or run.cfg["vocoder"]["arch"] != "wavernn"):
         return None
     t = trace.kernel_seconds(run.trace, "wavernn_sample_kernel")
     if t <= 0:

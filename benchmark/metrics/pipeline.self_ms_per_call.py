@@ -4,7 +4,7 @@ the host, trimming, 16-bit conversion), from the traced run's spans."""
 
 
 def read(run):
-    if not run.spans:
+    if not run.spans or run.cfg["family"] != "sv2tts":
         return None
     own = run.span_s("call") - run.span_s("tacotron") - run.span_s("vocoder")
     return 1e3 * own / len(run.calls)

@@ -47,7 +47,7 @@ def test_idle_share_from_a_hand_made_trace():
                                     "pipeline.self_ms_per_call", "hifigan.peak_pct"])
 def test_a_reader_with_nothing_to_read_returns_none(metric):
     run = _run([1.0])
-    run.k1_launches = 0
+    run.counters["k1_launches"] = 0
     assert registry.reader(metric).read(run) is None
 
 

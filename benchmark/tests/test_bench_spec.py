@@ -72,6 +72,4 @@ def test_each_cell_reports_what_it_must(cell):
 def test_each_configuration_has_a_limit_for_every_number(config):
     cfg = json.loads((registry.ROOT / next(c["file"] for c in SPEC["configs"]
                                            if c["name"] == config)).read_text())
-    want = {"mel_err"} | ({"pcm_err_excess"} if cfg["vocoder"]["arch"] == "hifigan"
-                          else {"label_gap", "pcm_lsb"})
-    assert set(cfg["limits"]) == want
+    assert set(cfg["limits"]) == registry.family(cfg).numbers(cfg)
