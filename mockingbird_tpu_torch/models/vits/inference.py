@@ -5,17 +5,25 @@ Port of ``mockingbird_tpu/models/vits/inference.py``: text buckets of 16,
 a static ``max_frames`` output length, and the int16 quantisation on the
 device. The noise of a call is drawn from a ``torch.Generator`` seeded with
 ``seed``, so a call is repeatable, as the JAX package's ``PRNGKey(seed)``
-makes it.
+makes it. An ``.npz`` export's ``.json`` sidecar, where there is one, sets
+the widths, as it does for the Tacotron ``Synthesizer``.
+
+Under a profiler session ``vits.text`` spans the host's text work and
+``Vits.infer`` spans its stages (``tracing.py``). Two counters add up, where
+a call's lengths reach the host, the frames decoded (``max_frames`` a text)
+and the frames returned (Σ ``y_lengths``): ``frames_decoded`` and
+``frames_returned``, read by ``counts()``.
 """
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
-from ... import resolve_device
+from ... import resolve_device, tracing
 from ...config import Config
 from ...dsp import spectrogram_vits
 from ...text import romanize, text_to_sequence
@@ -23,15 +31,35 @@ from ...weights import load_flax, load_npz
 from .model import init_vits, vits_config
 
 
+frames_decoded = 0
+frames_returned = 0
+_count_lock = threading.Lock()
+
+
 def _bucket(n: int, size: int) -> int:
     return max(size, ((n + size - 1) // size) * size)
+
+
+def count_frames(max_frames: int, y_lengths: np.ndarray) -> None:
+    """Count one batch whose ``y_lengths`` (host) have come back."""
+    global frames_decoded, frames_returned
+    returned = int(np.sum(y_lengths))
+    with _count_lock:
+        frames_decoded += max_frames * len(y_lengths)
+        frames_returned += returned
+
+
+def counts() -> dict:
+    """The counters: {"frames_decoded", "frames_returned"}."""
+    return {"frames_decoded": frames_decoded, "frames_returned": frames_returned}
 
 
 class VitsSynthesizer:
     """Weights come from ``variables`` (the flax tree of the generator, see
     ``weights.py``), from an ``.npz`` export at ``model_fpath`` (its ``g``
     subtree, or the whole tree), or else from ``seed``. A ``model_fpath``
-    that does not exist raises."""
+    that does not exist raises; its ``.json`` sidecar, if any, is merged
+    over ``cfg``."""
 
     def __init__(self, model_fpath: Optional[Union[str, Path]] = None, cfg=None,
                  verbose: bool = True, seed: int = 0, half: bool = False,
@@ -41,6 +69,9 @@ class VitsSynthesizer:
         self.cfg = Config(vits_config()).merge(cfg or {})
         self.seed = seed
         if model_fpath is not None:
+            sidecar = Path(model_fpath).with_suffix(".json")
+            if sidecar.exists():
+                self.cfg.merge(Config.from_json(sidecar))
             tree = load_npz(model_fpath)
             variables = tree.get("g", tree.get("params", tree))
             if verbose:
@@ -75,15 +106,16 @@ class VitsSynthesizer:
         """Like ``synthesize`` but returns the device tensors (o (B, max_frames
         · hop), y_lengths (B,)) without fetching them."""
         dev = self.device
-        x, xl = self._texts(texts)
-        b = len(texts)
-        sids = np.zeros(b, np.int64) if sids is None else np.asarray(sids, np.int64)
-        emos = (np.zeros((b, self.cfg.emotion_channels), np.float32) if emos is None
-                else np.asarray(emos, np.float32))
+        with tracing.span("vits.text"):
+            x, xl = self._texts(texts)
+            b = len(texts)
+            sids = np.zeros(b, np.int64) if sids is None else np.asarray(sids, np.int64)
+            emos = (np.zeros((b, self.cfg.emotion_channels), np.float32) if emos is None
+                    else np.asarray(emos, np.float32))
+            x, xl, sids, emos = (torch.from_numpy(a).to(dev) for a in (x, xl, sids, emos))
         gen = torch.Generator(device=dev).manual_seed(self.seed)
         o, _, _, y_lengths = self.model.infer(
-            torch.from_numpy(x).to(dev), torch.from_numpy(xl).to(dev),
-            torch.from_numpy(sids).to(dev), torch.from_numpy(emos).to(dev),
+            x, xl, sids, emos,
             noise_scale=noise_scale, length_scale=length_scale, noise_scale_w=noise_scale_w,
             max_len=max_frames, generator=gen)
         o = o.float()
@@ -100,6 +132,7 @@ class VitsSynthesizer:
             texts, sids=sids, emos=emos, noise_scale=noise_scale, length_scale=length_scale,
             noise_scale_w=noise_scale_w, max_frames=max_frames, pcm16=pcm16)
         o, y_lengths = o.cpu().numpy(), y_lengths.cpu().numpy()
+        count_frames(max_frames, y_lengths)
         return [o[i, :y_lengths[i] * self.cfg.hop_size] for i in range(len(texts))]
 
     @torch.no_grad()

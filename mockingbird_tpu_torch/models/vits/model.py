@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ... import seeded
+from ... import seeded, tracing
 from ...config import Config
 from ...ops.monotonic_align import maximum_path
 from ...parallel import multihost
@@ -354,16 +354,24 @@ class Vits(nn.Module):
               noise_scale_w=1.0, max_len=None, generator=None, dur_noise=None,
               prior_noise=None):
         """text → (wav (B, T_y·hop), attn, y_mask, y_lengths), T_y =
-        ``max_len`` (default 20 frames per text position)."""
-        hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, emo)
-        g = self._speaker(sid)
-        if self.cfg.use_sdp:
-            logw = self.dp(hx, x_mask, g=g, reverse=True, noise_scale=noise_scale_w,
-                           noise=dur_noise, generator=generator)
-        else:
-            logw = self.dp(hx, x_mask, g=g)
-        w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)
+        ``max_len`` (default 20 frames per text position). Under a profiler
+        session each stage's enqueue is a span with the attributes ``batch``,
+        ``t_text`` and ``max_frames``: ``vits.encode`` (the text encoder),
+        ``vits.duration`` (the duration predictor and the ceil),
+        ``vits.expand`` (the path, the prior at frame rate and its draw),
+        ``vits.flow`` and ``vits.decode``."""
         t_y = max_len if max_len is not None else x.shape[1] * 20
+        shape = (x.shape[0], x.shape[1], t_y)
+        with _stage("vits.encode", shape):
+            hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, emo)
+        with _stage("vits.duration", shape):
+            g = self._speaker(sid)
+            if self.cfg.use_sdp:
+                logw = self.dp(hx, x_mask, g=g, reverse=True, noise_scale=noise_scale_w,
+                               noise=dur_noise, generator=generator)
+            else:
+                logw = self.dp(hx, x_mask, g=g)
+            w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)
         return self.infer_from_durations(w_ceil, m_p, logs_p, x_mask, g, noise_scale, t_y,
                                          generator, prior_noise)
 
@@ -371,18 +379,31 @@ class Vits(nn.Module):
                              generator=None, prior_noise=None):
         """The part of ``infer`` after the durations (B, T_x, 1): expand the
         prior to frames, sample it, run the flow backwards and decode."""
-        y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), 1, t_y).to(torch.int32)
-        y_mask = sequence_mask(y_lengths, t_y)[..., None]
-        attn_mask = y_mask * x_mask.transpose(1, 2)
-        attn = generate_path(w_ceil.transpose(1, 2), attn_mask[:, None])[:, 0]
-        m_p = torch.einsum("byx,bxd->byd", attn, m_p)
-        logs_p = torch.einsum("byx,bxd->byd", attn, logs_p)
-        if prior_noise is None:
-            prior_noise = torch.randn(m_p.shape, generator=generator, device=m_p.device)
-        z_p = m_p + prior_noise * torch.exp(logs_p) * noise_scale
-        z = self.flow(z_p, y_mask, g=g, reverse=True)
-        o = self.dec(z * y_mask, g=g)
+        shape = (w_ceil.shape[0], w_ceil.shape[1], t_y)
+        with _stage("vits.expand", shape):
+            y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), 1, t_y).to(torch.int32)
+            y_mask = sequence_mask(y_lengths, t_y)[..., None]
+            attn_mask = y_mask * x_mask.transpose(1, 2)
+            attn = generate_path(w_ceil.transpose(1, 2), attn_mask[:, None])[:, 0]
+            m_p = torch.einsum("byx,bxd->byd", attn, m_p)
+            logs_p = torch.einsum("byx,bxd->byd", attn, logs_p)
+            if prior_noise is None:
+                prior_noise = torch.randn(m_p.shape, generator=generator, device=m_p.device)
+            z_p = m_p + prior_noise * torch.exp(logs_p) * noise_scale
+        with _stage("vits.flow", shape):
+            z = self.flow(z_p, y_mask, g=g, reverse=True)
+        with _stage("vits.decode", shape):
+            o = self.dec(z * y_mask, g=g)
         return o, attn, y_mask, y_lengths
+
+
+def _stage(name: str, shape) -> Any:
+    """The span of one stage of ``Vits.infer``; ``shape`` is (batch,
+    t_text, max_frames)."""
+    span = tracing.span(name)
+    for key, value in zip(("batch", "t_text", "max_frames"), shape):
+        span.set(key, value)
+    return span
 
 
 def init_vits(seed: int = 0, cfg=None) -> Vits:

@@ -5,7 +5,8 @@ Port of ``mockingbird_tpu/pipeline.py``: GE2E encoder → Tacotron (or VITS)
 ``tts_batch`` takes the fused branch when the synthesizer is Tacotron and
 the vocoder can vocode on the device (the GAN vocoders): the mels stay on
 the device, the PCM is quantised there, and one device-to-host copy per
-chunk of texts brings it back. Any other pair takes the staged branch
+chunk of texts brings it back. VITS, which makes the waveform itself, takes
+a branch of the same contract. Any other pair takes the staged branch
 through ``clone_voice``. Weights come from ``.npz`` exports of the JAX
 package's param trees, or from ``seed`` when no path is given; a path that
 does not exist raises ``FileNotFoundError``. A vocoder object passed as
@@ -108,15 +109,22 @@ class VoiceCloningPipeline:
         go in chunks of ``batch_size``; each chunk's mels stay on the device
         and are vocoded and quantised there, and its PCM comes back in one
         copy. ``embed`` (256,) is one voice for every text, (B, 256) one per
-        text; without it the reference wav's embedding is used. Any other
-        pair takes the staged branch through ``clone_voice`` and returns
-        host-quantised int16 (a ``pcm_format`` there only warns)."""
+        text; without it the reference wav's embedding is used. VITS takes
+        a branch of the same contract (``_tts_vits``), with ``steps`` as its
+        ``max_frames``. Any other pair takes the staged branch through
+        ``clone_voice`` and returns host-quantised int16 (a ``pcm_format``
+        there only warns)."""
         if isinstance(texts, str):
             texts = [texts]
-        fused = self.synthesizer_kind == "tacotron" and hasattr(self.vocoder, "vocode_device")
+        vits = self.synthesizer_kind == "vits"
+        fused = vits or (self.synthesizer_kind == "tacotron"
+                         and hasattr(self.vocoder, "vocode_device"))
         with tracing.span("tts_batch") as root:
             root.set("texts", len(texts))
             root.set("fused", fused)
+            if vits:
+                return self._tts_vits(texts, ref_wav, steps, batch_size, source_sr, pcm16,
+                                      pcm_format)
             if fused:
                 return self._tts_fused(texts, ref_wav, style_idx, min_stop_token, steps,
                                        batch_size, source_sr, pcm16, pcm_format, embed)
@@ -135,6 +143,42 @@ class VoiceCloningPipeline:
                             np.round(np.clip(w, -1.0, 1.0) * 32767).astype(np.int16)
                             for w in wavs]
             return wavs
+
+    def _tts_vits(self, texts, ref_wav, steps, batch_size, source_sr, pcm16,
+                  pcm_format) -> List[np.ndarray]:
+        """``tts_batch``'s VITS branch: chunks of ``batch_size`` texts, each
+        synthesised for ``steps`` frames (speaker 0, zero emotion), its
+        int16 made on the device; every chunk is enqueued before the first
+        copy, and each chunk's PCM and lengths come back in one copy each.
+        The reference wav is embedded (and cached) as on every branch; VITS
+        speaks as speaker 0 whatever the voice. int16 is the only wire
+        format: any other ``pcm_format`` warns and gives int16; without
+        ``pcm16`` or a format, float32."""
+        if ref_wav is not None:
+            with tracing.span("pipeline.embed"):
+                self.embed_reference(ref_wav, source_sr)
+        from .models.vits import inference as vits_inference
+        if pcm_format not in (None, "int16"):
+            warnings.warn(f"tts_batch: pcm_format={pcm_format!r} requested but VITS returns "
+                          "int16 only; returning int16 instead", stacklevel=3)
+        quantise = pcm16 or pcm_format is not None
+        hop = self.synthesizer.cfg.hop_size
+        pending = []
+        for i in range(0, len(texts), batch_size):
+            chunk = texts[i : i + batch_size]
+            pcm_dev, lens_dev = self.synthesizer.synthesize_device(chunk, max_frames=steps,
+                                                                   pcm16=quantise)
+            pending.append((len(chunk), pcm_dev, lens_dev))
+        wavs: List[np.ndarray] = []
+        for n, pcm_dev, lens_dev in pending:
+            with tracing.span("pipeline.fetch_wait"):
+                pcm = pcm_dev.cpu().numpy()             # one device-to-host copy per chunk
+                lens = lens_dev.cpu().numpy()
+            vits_inference.count_frames(steps, lens)
+            with tracing.span("pipeline.unpack"):
+                for j in range(n):
+                    wavs.append(pcm[j, : int(lens[j]) * hop])
+        return wavs
 
     def _tts_fused(self, texts, ref_wav, style_idx, min_stop_token, steps, batch_size,
                    source_sr, pcm16, pcm_format, embed) -> List[np.ndarray]:

@@ -244,9 +244,9 @@ def test_griffin_lim_and_tts_to_file(fused, tmp_path):
 
 def test_vits_pipeline_routes_to_vits():
     """``synthesizer="vits"`` builds the port's ``VitsSynthesizer``;
-    ``clone_voice`` returns its ``synthesize`` output and ``tts_batch`` (the
-    staged branch) its int16 quantisation, warning that ``pcm_format`` did
-    not apply."""
+    ``clone_voice`` returns its ``synthesize`` output and ``tts_batch`` (its
+    VITS branch) the same waveforms as int16, warning that ``pcm_format``
+    did not apply."""
     from test_torch_vits import SMALL as VITS_SMALL
     from mockingbird_tpu_torch.models.vits import VitsSynthesizer
     pipe = VoiceCloningPipeline(synthesizer="vits", verbose=False, device="cpu")
@@ -260,3 +260,75 @@ def test_vits_pipeline_routes_to_vits():
         pcm = pipe.tts_batch(TEXTS[:2], REF_WAV, pcm_format="mulaw8")
     for p, w in zip(pcm, want):
         np.testing.assert_array_equal(p, np.round(np.clip(w, -1, 1) * 32767).astype(np.int16))
+
+
+VITS_STEPS = 40
+
+
+@pytest.fixture(scope="module")
+def vits_pipe():
+    from test_torch_vits import SMALL as VITS_SMALL
+    from mockingbird_tpu_torch.models.vits import VitsSynthesizer
+    pipe = VoiceCloningPipeline(synthesizer="vits", verbose=False, device="cpu")
+    pipe.synthesizer = VitsSynthesizer(cfg=VITS_SMALL, verbose=False, seed=3, device="cpu")
+    return pipe
+
+
+def test_vits_tts_batch_chunks_steps_and_int16(vits_pipe):
+    """The VITS branch of ``tts_batch`` runs chunks of ``batch_size`` texts,
+    each for ``steps`` frames; every text's int16 is the float path's
+    waveform of its chunk quantised on the host, within one 16-bit step,
+    and is ``y_lengths · hop`` samples long; without ``pcm16`` it is that
+    float waveform."""
+    syn = vits_pipe.synthesizer
+    texts = TEXTS + TEXTS[:2]
+    chunks = []
+    inner = syn.synthesize_device
+
+    def recorded(chunk, **kw):
+        chunks.append((list(chunk), kw["max_frames"], kw["pcm16"]))
+        return inner(chunk, **kw)
+    syn.synthesize_device = recorded
+    try:
+        pcm = vits_pipe.tts_batch(texts, REF_WAV, steps=VITS_STEPS, batch_size=2)
+        floats = vits_pipe.tts_batch(texts, REF_WAV, steps=VITS_STEPS, batch_size=2,
+                                     pcm16=False)
+    finally:
+        syn.synthesize_device = inner
+    assert [(c, f) for c, f, _ in chunks[:3]] == [(texts[0:2], VITS_STEPS),
+                                                  (texts[2:4], VITS_STEPS),
+                                                  (texts[4:5], VITS_STEPS)]
+    assert [q for _, _, q in chunks] == [True] * 3 + [False] * 3
+    hop = syn.cfg.hop_size
+    want, lengths = [], []
+    for i in range(0, len(texts), 2):
+        o, yl = inner(texts[i:i + 2], max_frames=VITS_STEPS)
+        for j in range(o.shape[0]):
+            want.append(o[j, :int(yl[j]) * hop].numpy())
+            lengths.append(int(yl[j]))
+    assert len(pcm) == len(texts) and all(p.dtype == np.int16 for p in pcm)
+    assert [len(p) for p in pcm] == [n * hop for n in lengths]
+    assert all(0 < n <= VITS_STEPS for n in lengths)
+    for p, f, w in zip(pcm, floats, want):
+        host = np.round(np.clip(w, -1, 1) * 32767).astype(np.int16)
+        assert np.abs(p.astype(np.int32) - host).max() <= 1
+        np.testing.assert_array_equal(f, w)
+
+
+def test_vits_sidecar_sets_the_widths(tmp_path):
+    """``VitsSynthesizer`` reads the ``.json`` sidecar beside an ``.npz``:
+    small-width weights load with it, and the strict load refuses them at
+    the stock widths without it."""
+    from test_torch_vits import SMALL as VITS_SMALL
+    from mockingbird_tpu_torch.models.vits import VitsSynthesizer, init_vits, vits_config
+    from mockingbird_tpu_torch.weights import WeightMismatch, save_npz, to_flax
+    model = init_vits(5, vits_config().merge(VITS_SMALL))
+    save_npz(tmp_path / "vits.npz", to_flax(model))
+    with pytest.raises(WeightMismatch):
+        VitsSynthesizer(tmp_path / "vits.npz", verbose=False, device="cpu")
+    (tmp_path / "vits.json").write_text(json.dumps(VITS_SMALL))
+    syn = VitsSynthesizer(tmp_path / "vits.npz", verbose=False, device="cpu")
+    assert syn.cfg.hidden_channels == VITS_SMALL["hidden_channels"]
+    assert syn.cfg.upsample_rates == VITS_SMALL["upsample_rates"]
+    np.testing.assert_array_equal(syn.model.dec.conv_pre.weight.detach().numpy(),
+                                  model.dec.conv_pre.weight.detach().numpy())

@@ -1,7 +1,7 @@
 """The port's program spans (``mockingbird_tpu_torch/tracing.py``): off
 outside a profiler session, the same output with them on and off, the span
-tree of a fused and of a staged ``tts_batch`` call at small widths on the
-CPU, the recorder's arithmetic, its buffer and its threads; and on a CUDA
+tree of a fused, a staged and a VITS ``tts_batch`` call at small widths on
+the CPU, VITS's frame counters, the recorder's arithmetic, its buffer and its threads; and on a CUDA
 card, the spans against the kernels on the profiler's clock.
 
 The card case skips without one. On the card's machine it runs as
@@ -21,6 +21,7 @@ from mockingbird_tpu_torch.models.tacotron import Synthesizer
 from mockingbird_tpu_torch.models.tacotron.model import tacotron_config
 from mockingbird_tpu_torch.models.vocoder import GanVocoder, WaveRnnVocoder
 from mockingbird_tpu_torch.pipeline import VoiceCloningPipeline
+from mockingbird_tpu_torch.text import romanize, text_to_sequence
 
 REF_WAV = "saved_models/gan_run/eval/ground_truth.wav"
 TACO = dict(embed_dims=32, encoder_dims=16, decoder_dims=16, postnet_dims=32,
@@ -141,6 +142,76 @@ def test_staged_call_span_tree(staged):
     names = [s.name for s in sorted(found, key=lambda s: s.start_ns)
              if s.name.startswith(("wavernn.", "k1."))]
     assert names == ["wavernn.fold", "k1.launch", "wavernn.labels_wait", "wavernn.finalize"]
+
+
+VITS_CHILDREN = {"pipeline.embed", "vits.text", "vits.encode", "vits.duration",
+                 "vits.expand", "vits.flow", "vits.decode", "pipeline.fetch_wait",
+                 "pipeline.unpack"}
+VITS_STAGES = ("vits.encode", "vits.duration", "vits.expand", "vits.flow", "vits.decode")
+VITS_FRAMES = 40
+
+
+# the small VITS of ``tests/test_torch_vits.py``
+VITS = dict(inter_channels=32, hidden_channels=32, filter_channels=64, n_heads=2, n_layers=2,
+            upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8], upsample_initial_channel=64,
+            resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3]], spec_channels=65,
+            segment_size=16 * 8, hop_size=16, n_speakers=4, gin_channels=16,
+            emotion_channels=8, n_fft=128, win_size=128, num_mels=20)
+
+
+@pytest.fixture(scope="module")
+def vits():
+    from mockingbird_tpu_torch.models.vits import VitsSynthesizer
+    pipe = VoiceCloningPipeline(synthesizer="vits", verbose=False, device="cpu")
+    pipe.synthesizer = VitsSynthesizer(cfg=VITS, verbose=False, seed=2, device="cpu")
+    return pipe
+
+
+def test_vits_call_span_tree(vits):
+    """A VITS ``tts_batch`` of two chunks records nothing outside a profiler
+    session and the same output with spans on; under one, the host's text
+    work and every stage of ``Vits.infer`` once a chunk, each under the
+    root, the stages in order and each with ``batch``, ``t_text`` and
+    ``max_frames``."""
+    texts = TEXTS + TEXTS[:1]
+    kw = dict(steps=VITS_FRAMES, batch_size=2)
+    off = vits.tts_batch(texts, REF_WAV, **kw)
+    assert tracing.spans() == []
+    on = _profiled(lambda: vits.tts_batch(texts, REF_WAV, **kw))
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a, b)
+    found = tracing.spans()
+    (root,) = [s for s in found if s.parent is None]
+    assert root.name == "tts_batch" and root.attrs == {"texts": 3, "fused": 1}
+    assert all(s.call == root.id and s.parent == root.id for s in found if s is not root)
+    assert {s.name for s in found if s is not root} == VITS_CHILDREN
+    order = [s.name for s in sorted(found, key=lambda s: s.start_ns) if s.name in VITS_STAGES]
+    assert order == list(VITS_STAGES) * 2
+    t_text = [16 * -(-max(len(text_to_sequence(romanize(t))) for t in c) // 16)
+              for c in (texts[:2], texts[2:])]
+    stages = sorted((s for s in found if s.name in VITS_STAGES), key=lambda s: s.start_ns)
+    assert [s.attrs for s in stages] == [
+        {"batch": b, "t_text": t, "max_frames": VITS_FRAMES}
+        for b, t in ((2, t_text[0]), (1, t_text[1])) for _ in VITS_STAGES]
+    assert [s.name for s in found].count("vits.text") == 2
+    assert [s.name for s in found].count("pipeline.fetch_wait") == 2
+
+
+def test_vits_frame_counters(vits):
+    """The two counters add ``max_frames`` a text and Σ ``y_lengths``, where
+    the lengths reach the host, in ``tts_batch`` and in ``synthesize``."""
+    from mockingbird_tpu_torch.models.vits import inference
+    syn = vits.synthesizer
+    before = inference.counts()
+    pcm = vits.tts_batch(TEXTS, REF_WAV, steps=VITS_FRAMES, batch_size=2)
+    wavs = syn.synthesize(TEXTS[:2], max_frames=VITS_FRAMES + 8)
+    after = inference.counts()
+    hop = syn.cfg.hop_size
+    assert after["frames_decoded"] - before["frames_decoded"] == (
+        VITS_FRAMES * len(TEXTS) + (VITS_FRAMES + 8) * 2)
+    assert after["frames_returned"] - before["frames_returned"] == (
+        sum(len(p) for p in pcm + wavs) // hop)
+    assert all(len(p) % hop == 0 for p in pcm + wavs)
 
 
 def test_graphed_share_reads_the_decode_spans(monkeypatch):
