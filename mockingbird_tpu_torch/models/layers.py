@@ -21,6 +21,7 @@ JAX package names it.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple, Union
 
 import torch
@@ -336,6 +337,25 @@ def same_padding(t: int, k: int, stride: int = 1, dilation: int = 1) -> Tuple[in
     return total // 2, total - total // 2
 
 
+def _nc1t(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous (B, T, C) as the (B, C, 1, T) view it is in
+    ``torch.channels_last`` memory."""
+    return x.transpose(1, 2).unsqueeze(2)
+
+
+def _nc1t_kernel(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A 1-D kernel (a, b, k) as (a, b, 1, k) in ``torch.channels_last``
+    memory, in ``dtype``."""
+    return w.to(dtype).unsqueeze(2).contiguous(memory_format=torch.channels_last)
+
+
+def _ntc(y: torch.Tensor) -> torch.Tensor:
+    """A convolution's (B, C, 1, T) output as contiguous (B, T, C): a view
+    where it is channels-last, as cuDNN returns it for channels-last
+    operands."""
+    return y.squeeze(2).transpose(1, 2).contiguous()
+
+
 class Conv1d(nn.Module):
     """flax ``nn.Conv`` over one axis with ``padding="SAME"``, ``"VALID"`` or
     explicit ``(low, high)`` pads, optionally wrapped in flax ``nn.WeightNorm``. ``weight`` is
@@ -367,6 +387,12 @@ class Conv1d(nn.Module):
             return weight_norm(self.weight, self.scale, 0)
         return self.weight
 
+    def pads(self, t: int) -> Tuple[int, int]:
+        """The (low, high) padding of an input of length ``t``."""
+        if self.padding == "SAME":
+            return same_padding(t, self.k, self.stride, self.dilation)
+        return (0, 0) if self.padding == "VALID" else tuple(self.padding)
+
     def forward(self, x: torch.Tensor, kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``kernel`` (``weight``'s layout) replaces the conv's own, as
         ``SpectralNorm`` hands in its normalised one."""
@@ -374,14 +400,37 @@ class Conv1d(nn.Module):
         w = (self.kernel() if kernel is None else kernel).to(x.dtype)
         if self.time_major:
             x = x.transpose(1, 2)
-        if self.padding == "SAME":
-            pad = same_padding(x.shape[-1], self.k, self.stride, self.dilation)
-        else:
-            pad = (0, 0) if self.padding == "VALID" else tuple(self.padding)
+        pad = self.pads(x.shape[-1])
         if pad != (0, 0):
             x = F.pad(x, pad)
         y = with_bias(F.conv1d, x, w, b, self.stride, 0, self.dilation, self.groups)
         return y.transpose(1, 2) if self.time_major else y
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution of channels-last ``x`` (B, T, C), without the
+        bias → (B, T', out), channels-last: ``conv2d`` on a (B, C, 1, T)
+        view in ``torch.channels_last`` memory, which cuDNN's NHWC kernels
+        read and write as it lies. Symmetric padding is the convolution's
+        own; only an asymmetric one pads ``x`` first."""
+        x = promote(x, self.weight)[0].contiguous()
+        lo, hi = self.pads(x.shape[1])
+        if lo != hi:
+            x, lo = F.pad(x, (0, 0, lo, hi)), 0
+        y = F.conv2d(_nc1t(x), _nc1t_kernel(self.kernel(), x.dtype), None, (1, self.stride),
+                     (0, lo), (1, self.dilation), self.groups)
+        return _ntc(y)
+
+
+def _conv_transpose(op, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                    *args) -> torch.Tensor:
+    """``op(x, w, b, *args)``, in bf16 on the CPU through float32 rounded
+    once: oneDNN's bf16 strided conv, which computes a transposed conv's
+    input gradient, returns wrong sums at some shapes (16 → 32 channels,
+    kernel 8, stride 4: relative error ~1.2 against float64); float32
+    rounded once is what the card's bf16 conv gives."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return op(x.float(), w.float(), None if b is None else b.float(), *args).to(x.dtype)
+    return op(x, w, b, *args)
 
 
 class ConvTranspose1d(nn.Module):
@@ -404,14 +453,16 @@ class ConvTranspose1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, _, b = promote(x, self.weight, self.bias)
         w = self.kernel().to(x.dtype)
-        if x.dtype == torch.bfloat16 and x.device.type == "cpu":
-            # oneDNN's bf16 strided conv, which computes this layer's input
-            # gradient, returns wrong sums at some shapes (16 → 32 channels,
-            # kernel 8, stride 4: relative error ~1.2 against float64);
-            # float32 rounded once is what the card's bf16 conv gives
-            y = F.conv_transpose1d(x.float(), w.float(), None, self.stride).to(x.dtype)
-            return y if b is None else y + b.reshape(1, -1, 1)
-        return with_bias(F.conv_transpose1d, x, w, b, self.stride)
+        return with_bias(partial(_conv_transpose, F.conv_transpose1d), x, w, b, self.stride)
+
+    def product(self, x: torch.Tensor, padding: int = 0, output_padding: int = 0) -> torch.Tensor:
+        """The transposed convolution of channels-last ``x`` (B, T, C)
+        with torch's ``padding`` and ``output_padding``, without the bias
+        → (B, T', out), channels-last, as ``Conv1d.product`` runs it."""
+        x = promote(x, self.weight)[0].contiguous()
+        return _ntc(_conv_transpose(F.conv_transpose2d, _nc1t(x),
+                                    _nc1t_kernel(self.kernel(), x.dtype), None,
+                                    (1, self.stride), (0, padding), (0, output_padding)))
 
 
 class Conv2d(nn.Module):

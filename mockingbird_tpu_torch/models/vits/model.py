@@ -28,11 +28,13 @@ import torch.nn.functional as F
 
 from ... import seeded, tracing
 from ...config import Config
+from ...ops.conv_epilogue import conv_epilogue
 from ...ops.monotonic_align import maximum_path
 from ...parallel import multihost
 from ...text import symbols as _symbols
 from ..layers import Conv1d, ConvTranspose1d, Dense, LayerNorm, dropout
-from ..vocoder.hifigan import LRELU_SLOPE, ResBlock1, ResBlock2, upsample_valid
+from ..vocoder.hifigan import (LRELU_SLOPE, ResBlock1, ResBlock2, channels_last_path,
+                               fused_stages, upsample_valid)
 from .modules import (
     ConvFlow, DDSConv, ElementwiseAffine, Flip, Log, ResidualCouplingLayer,
     TransformerEncoder, WN, generate_path, rand_slice_segments, sequence_mask,
@@ -135,7 +137,9 @@ class ResidualCouplingBlock(nn.Module):
 
 class VitsGenerator(nn.Module):
     """HiFi-GAN decoder with gin conditioning: z (B, T, C) → wav (B, T·hop).
-    Channels-first inside; each transposed conv is ``upsample_valid``'s."""
+    Channels-first inside; each transposed conv is ``upsample_valid``'s. On
+    a card with gradients off, channels-last from the first transposed conv
+    on, as HiFi-GAN's ``Generator.forward_channels_last``."""
 
     def __init__(self, cfg: Any):
         super().__init__()
@@ -159,6 +163,11 @@ class VitsGenerator(nn.Module):
         x = self.conv_pre(x)
         if g is not None:
             x = x + self.cond(g)
+        if channels_last_path(x):
+            # HiFi-GAN's inference path on the card (``Generator.forward_channels_last``)
+            a = conv_epilogue(x.contiguous(), slope=LRELU_SLOPE)
+            a = fused_stages(self, a)
+            return conv_epilogue(self.conv_post.product(a), tanh=True)[..., 0]
         x = x.transpose(1, 2)                               # (B, C, T)
         n_k = len(c.resblock_kernel_sizes)
         for i, u in enumerate(c.upsample_rates):

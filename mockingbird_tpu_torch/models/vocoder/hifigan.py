@@ -2,7 +2,9 @@
 discriminators.
 
 Port of ``mockingbird_tpu/models/vocoder/hifigan.py``. The modules run
-channels-first (B, C, T) inside; a weight-normed conv is
+channels-first (B, C, T) inside, except the generator on a card with
+gradients off (``forward_channels_last``: (B, T, C) memory and one
+hand-written epilogue after each conv); a weight-normed conv is
 ``layers.Conv1d(weight_norm=True)`` with the flax layout's ``<name>_conv``
 kernel and ``<name>`` gain. ``Generator`` takes and returns the JAX
 package's layout at its boundary: mel (B, T, 80) → wav (B, T·hop). The
@@ -20,9 +22,19 @@ import torch.nn.functional as F
 
 from ... import seeded
 from ...config import Config
+from ...ops.conv_epilogue import conv_epilogue
 from ..layers import Conv1d, Conv2d, ConvTranspose1d, SpectralNorm
 
 LRELU_SLOPE = 0.1
+# flax's default slope, which the generators' last leaky ReLU takes
+LAST_SLOPE = 0.01
+
+
+def channels_last_path(x: torch.Tensor) -> bool:
+    """Whether a generator runs ``forward_channels_last`` on ``x``: on a
+    card with gradients off. The CPU and every call with gradients run the
+    unfused ``forward``, which the tests hold against the JAX package."""
+    return x.is_cuda and not torch.is_grad_enabled()
 
 
 def hifigan_config() -> Config:
@@ -62,6 +74,23 @@ def wn_conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, dilation: int
                   weight_norm=True, time_major=False)
 
 
+def fused_residuals(units, x: torch.Tensor, a: torch.Tensor, **tail) -> torch.Tensor:
+    """A residual block on channels-last memory: for each unit (a list of
+    convs), the convs in turn from ``a`` = leaky_relu(``x``), the last one's
+    output added to ``x``. One ``conv_epilogue`` after each conv: its bias,
+    then the next conv's leaky ReLU, or the residual add and both the new
+    ``x`` and its leaky ReLU; after the last unit the residual add and
+    ``tail`` (the block sum, its division, the next activation)."""
+    for i, convs in enumerate(units):
+        for conv in convs[:-1]:
+            a = conv_epilogue(conv.product(a), conv.bias, slope=LRELU_SLOPE)
+        last = convs[-1]
+        if i == len(units) - 1:
+            return conv_epilogue(last.product(a), last.bias, residual=x, **tail)
+        x, a = conv_epilogue(last.product(a), last.bias, residual=x, slope=LRELU_SLOPE,
+                             keep_x=True)
+
+
 class ResBlock1(nn.Module):
     """MRF block: 3×(dilated conv + plain conv) with residuals."""
 
@@ -79,6 +108,12 @@ class ResBlock1(nn.Module):
             x = xt + x
         return x
 
+    def fused(self, x: torch.Tensor, a: torch.Tensor, **tail) -> torch.Tensor:
+        """``forward`` on channels-last ``x`` (B, T, C) and its leaky ReLU
+        ``a``, ending in ``tail`` (``fused_residuals``)."""
+        return fused_residuals([[getattr(self, f"convs1_{i}"), getattr(self, f"convs2_{i}")]
+                                for i in range(self.n)], x, a, **tail)
+
 
 class ResBlock2(nn.Module):
     def __init__(self, channels: int, kernel: int = 3, dilations: Tuple[int, ...] = (1, 3)):
@@ -92,6 +127,11 @@ class ResBlock2(nn.Module):
             x = getattr(self, f"convs_{i}")(F.leaky_relu(x, LRELU_SLOPE)) + x
         return x
 
+    def fused(self, x: torch.Tensor, a: torch.Tensor, **tail) -> torch.Tensor:
+        """As ``ResBlock1.fused``."""
+        return fused_residuals([[getattr(self, f"convs_{i}")] for i in range(self.n)], x, a,
+                               **tail)
+
 
 def upsample_valid(conv: ConvTranspose1d, x: torch.Tensor, u: int) -> torch.Tensor:
     """flax's VALID transposed conv (length (T-1)·u + k) sliced to T·u
@@ -100,6 +140,46 @@ def upsample_valid(conv: ConvTranspose1d, x: torch.Tensor, u: int) -> torch.Tens
     t_in = x.shape[-1]
     off = u // 2 + u % 2
     return conv(x)[..., off:off + t_in * u]
+
+
+def upsample_product(conv: ConvTranspose1d, x: torch.Tensor, u: int) -> torch.Tensor:
+    """``upsample_valid`` on channels-last ``x`` (B, T, C), without the
+    bias: the window as the transposed conv's own ``padding`` and
+    ``output_padding`` where the kernel allows them (k = 2u does), else the
+    whole output sliced."""
+    t_in, k = x.shape[1], conv.weight.shape[-1]
+    off = u // 2 + u % 2
+    out_pad = u + 2 * off - k
+    if 0 <= out_pad < u and off + u <= k:
+        return conv.product(x, off, out_pad)
+    return conv.product(x)[:, off:off + t_in * u].contiguous()
+
+
+def fused_stages(gen: nn.Module, a: torch.Tensor) -> torch.Tensor:
+    """A generator's upsampling stages on channels-last memory, from ``a``
+    = leaky_relu(x) (B, T, C) to leaky_relu(x, ``LAST_SLOPE``) before
+    ``conv_post``: each stage's transposed conv ``gen.ups_{i}`` (the 24 kHz
+    variant's repeat and VALID conv where ``gen.interp``), then its
+    resblocks ``gen.resblock_{i}_{j}``, summed and averaged inside their
+    last epilogues."""
+    c = gen.cfg
+    n_k, n_up = len(c.resblock_kernel_sizes), len(c.upsample_rates)
+    for i, (u, k) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
+        ups = getattr(gen, f"ups_{i}")
+        if getattr(gen, "interp", False):
+            p = (k - 1) // 2
+            y = ups.product(F.pad(a.repeat_interleave(u, dim=1), (0, 0, p, p)))
+        else:
+            y = upsample_product(ups, a, u)
+        x, a = conv_epilogue(y, ups.bias, slope=LRELU_SLOPE, keep_x=True)
+        xs = None
+        for j in range(n_k):
+            tail = {}
+            if j == n_k - 1:
+                tail = dict(n_blocks=n_k, slope=LRELU_SLOPE if i < n_up - 1 else LAST_SLOPE)
+            xs = getattr(gen, f"resblock_{i}_{j}").fused(x, a, block_sum=xs, **tail)
+        a = xs
+    return a
 
 
 class Generator(nn.Module):
@@ -127,6 +207,8 @@ class Generator(nn.Module):
         self.conv_post = wn_conv(ch0 // 2 ** len(c.upsample_rates), 1, 7)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        if channels_last_path(mel):
+            return self.forward_channels_last(mel)
         c = self.cfg
         n_k = len(c.resblock_kernel_sizes)
         x = self.conv_pre(mel.transpose(1, 2))                     # (B, C, T)
@@ -146,6 +228,15 @@ class Generator(nn.Module):
         # flax's default slope (0.01) here, not LRELU_SLOPE
         x = self.conv_post(F.leaky_relu(x))
         return torch.tanh(x)[:, 0]
+
+    def forward_channels_last(self, mel: torch.Tensor) -> torch.Tensor:
+        """``forward`` with the activations (B, T, C) from ``conv_pre`` to
+        ``conv_post`` and one ``conv_epilogue`` after each conv: the same
+        arithmetic and rounding, without a transpose, a pad or an
+        element-wise pass of its own."""
+        a = conv_epilogue(self.conv_pre.product(mel), self.conv_pre.bias, slope=LRELU_SLOPE)
+        a = fused_stages(self, a)
+        return conv_epilogue(self.conv_post.product(a), self.conv_post.bias, tanh=True)[..., 0]
 
 
 class DiscriminatorP(nn.Module):

@@ -18,6 +18,7 @@ from ... import resolve_device, seeded
 from ...config import Config
 from ...dsp import encode_mulaw8_device
 from ...weights import load_flax, load_npz
+from ..layers import Conv1d, ConvTranspose1d
 from .fregan import FreGanGenerator, fregan_config
 from .hifigan import Generator as HifiGenerator, hifigan_config
 
@@ -62,6 +63,8 @@ class GanVocoder:
             load_flax(model, variables)
         self.half = half
         self.model = model.to(self.device, torch.bfloat16 if half else torch.float32).eval()
+        # each runs once a call
+        self.n_convs = sum(isinstance(m, (Conv1d, ConvTranspose1d)) for m in model.modules())
 
     @torch.no_grad()
     def _fwd(self, mel: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The hand-written kernels against their plain versions on a CUDA card:
-the WaveRNN sampler (both conditioning layouts) and monotonic alignment
-search; the voice-conversion models (no kernel) in f32 on the card
+the WaveRNN sampler (both conditioning layouts), monotonic alignment
+search and the HiFi-GAN conv epilogue, with the generators' channels-last
+path it serves against their unfused path; the voice-conversion models (no kernel) in f32 on the card
 against the same models on the CPU; and Tacotron's decode replayed from a
 captured CUDA graph against the same decode stepped from Python.
 
@@ -827,3 +828,148 @@ multihost.shutdown()
     assert runs["group"]["started"] and runs["group"]["backend"] == "nccl"
     assert not runs["none"]["started"]
     np.testing.assert_allclose(runs["group"]["losses"], runs["none"]["losses"], rtol=1e-6)
+
+
+# the HiFi-GAN conv epilogue: each case's arguments to ``conv_epilogue``
+EPILOGUE_CASES = {
+    "conv": dict(bias=True, slope=0.1),                  # a ResBlock's first conv, conv_pre
+    "post": dict(bias=True, tanh=True),                  # conv_post
+    "post_no_bias": dict(tanh=True),                     # VITS's conv_post
+    "act_only": dict(slope=0.1),                         # VITS after conv_pre
+    "residual": dict(bias=True, residual=True, slope=0.1, keep_x=True),
+    "first_block": dict(bias=True, residual=True),
+    "middle_block": dict(bias=True, residual=True, block_sum=True),
+    "last_block": dict(bias=True, residual=True, block_sum=True, n_blocks=3, slope=0.01),
+    "single_block": dict(bias=True, residual=True, n_blocks=1, slope=0.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES))
+@pytest.mark.parametrize("t_len", [1, 37, 203])
+@pytest.mark.parametrize("channels", [512, 256, 128, 64, 32, 12, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_conv_epilogue_kernel_bit_for_bit(card, dtype, channels, t_len, case):
+    """The kernel against its plain version (the unfused operators) on the
+    card, bit for bit: every case the generators use, at the generators'
+    widths, 12 (no 16-byte vector of channels) and 1 (conv_post), at
+    lengths that are not multiples of a vector; the result written in
+    place where the wrapper says, one launch counted."""
+    from mockingbird_tpu_torch.ops import conv_epilogue as ce
+    kw = dict(EPILOGUE_CASES[case])
+    gen = torch.Generator(device=card).manual_seed(channels * 1000 + t_len)
+
+    def draw(*shape):
+        return (2 * torch.randn(*shape, generator=gen, device=card)).to(dtype)
+    y = draw(3, t_len, channels)
+    args = dict(bias=draw(channels) if kw.pop("bias", False) else None,
+                residual=draw(*y.shape) if kw.pop("residual", False) else None,
+                block_sum=draw(*y.shape) if kw.pop("block_sum", False) else None, **kw)
+    want = ce.conv_epilogue_plain(y, **args)
+    y_in, sum_in = y.clone(), None if args["block_sum"] is None else args["block_sum"].clone()
+    before = ce.launches()
+    got = ce.conv_epilogue(y_in, **dict(args, block_sum=sum_in))
+    torch.cuda.synchronize()
+    assert ce.launches() == before + 1
+    want, got = ((want,), (got,)) if torch.is_tensor(want) else (want, got)
+    for w, g in zip(want, got):
+        assert g.dtype == dtype and g.shape == y.shape
+        assert torch.equal(g, w), (case, float((g.float() - w.float()).abs().max()))
+    in_place = sum_in if sum_in is not None and not (kw.get("slope") or kw.get("tanh")) else y_in
+    assert got[0].data_ptr() == in_place.data_ptr()
+
+
+def test_conv_epilogue_refuses_what_it_does_not_take(card):
+    from mockingbird_tpu_torch.ops.conv_epilogue import conv_epilogue
+    y = torch.zeros(2, 5, 8, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        conv_epilogue(y.half(), slope=0.1)
+    with pytest.raises(ValueError):
+        conv_epilogue(y.transpose(1, 2), slope=0.1)
+    with pytest.raises(ValueError):
+        conv_epilogue(y, torch.zeros(4, device=card, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        conv_epilogue(y, residual=torch.zeros(2, 5, 8, device=card))
+
+
+FLAGSHIP_GAN = dict(upsample_rates=[8, 8, 4], upsample_kernel_sizes=[16, 16, 8], hop_size=256)
+
+
+def _unfused(monkeypatch, module):
+    monkeypatch.setattr(module, "channels_last_path", lambda x: False)
+
+
+def _pcm16(wav):
+    return torch.round(torch.clamp(wav.float(), -1, 1) * 32767).cpu().numpy().astype(np.int64)
+
+
+def test_hifigan_channels_last_on_card_matches_unfused(card, monkeypatch):
+    """The flagship's bf16 generator at its published widths, seeded, on 4
+    mels x 64 frames: the channels-last path (every conv followed by the
+    epilogue) against the unfused path on the same card, both quantised to
+    16 bits and judged against the float32 generator (TF32 off). The two
+    bf16 paths round at the same points, so they may differ only by
+    cuDNN's accumulation order: the new path's RMS error exceeds the
+    unfused one's by at most 5% (the benchmark's ``pcm_err_excess``
+    limit), and no sample lies farther from the unfused path than the
+    unfused path's largest error."""
+    from mockingbird_tpu_torch.models.vocoder import GanVocoder, hifigan
+    from mockingbird_tpu_torch.ops.conv_epilogue import launches
+    half = GanVocoder("hifigan", cfg=FLAGSHIP_GAN, seed=5, verbose=False, device=card)
+    full = GanVocoder("hifigan", cfg=FLAGSHIP_GAN, seed=5, verbose=False, device=card,
+                      half=False)
+    mel = torch.from_numpy(np.random.RandomState(5).randn(4, 64, 80).astype(np.float32))
+    mel = mel.to(card)
+    before = launches()
+    new = half.vocode_device(mel, pcm_format="float32")
+    assert launches() - before == half.n_convs == 59
+    _unfused(monkeypatch, hifigan)
+    old = half.vocode_device(mel, pcm_format="float32")
+    ref = full.vocode_device(mel, pcm_format="float32")
+    assert launches() - before == 59
+    new, old, ref = _pcm16(new), _pcm16(old), _pcm16(ref)
+    err_new = np.sqrt(np.mean((new - ref) ** 2.0))
+    err_old = np.sqrt(np.mean((old - ref) ** 2.0))
+    assert err_old > 0
+    assert err_new / err_old - 1 <= 0.05, (err_new, err_old)
+    assert np.abs(new - old).max() <= np.abs(old - ref).max(), (
+        np.abs(new - old).max(), np.abs(old - ref).max())
+
+
+def test_vits_decoder_channels_last_on_card_matches_unfused(card, monkeypatch):
+    """VITS's float32 decoder at its published widths, seeded, on 4 x 64
+    frames with the speaker conditioning: the channels-last path against
+    the unfused one on the same card (TF32 off), which differ only by
+    cuDNN's accumulation order: RMS within 1e-5 of the output's, every
+    16-bit sample within 1 step."""
+    from mockingbird_tpu_torch.models.vits import model as vits_model
+    from mockingbird_tpu_torch.models.vits.model import VitsGenerator, vits_config
+    torch.manual_seed(7)
+    cfg = vits_config().merge(dict(upsample_rates=[8, 8, 2, 2],
+                                   upsample_kernel_sizes=[16, 16, 4, 4], gin_channels=256))
+    dec = VitsGenerator(cfg).to(card).eval()
+    rng = np.random.RandomState(7)
+    z = torch.from_numpy(rng.randn(4, 64, cfg.inter_channels).astype(np.float32)).to(card)
+    g = torch.from_numpy(rng.randn(4, 1, 256).astype(np.float32)).to(card)
+    with torch.no_grad():
+        new = dec(z, g=g)
+        _unfused(monkeypatch, vits_model)
+        old = dec(z, g=g)
+    assert new.shape == old.shape == (4, 64 * 256)
+    rms = float(torch.sqrt(torch.mean((new - old) ** 2)) / torch.sqrt(torch.mean(old ** 2)))
+    assert rms <= 1e-5, rms
+    assert np.abs(_pcm16(new) - _pcm16(old)).max() <= 1
+
+
+def test_hifigan_with_gradients_runs_unfused_on_card(card):
+    """With gradients on (training), the generator takes the unfused path
+    on the card: no epilogue launched, a gradient through every weight."""
+    from mockingbird_tpu_torch.models.vocoder import GanVocoder
+    from mockingbird_tpu_torch.ops.conv_epilogue import launches
+    voc = GanVocoder("hifigan", cfg=FLAGSHIP_GAN, seed=5, verbose=False, device=card)
+    mel = torch.randn(1, 8, 80, device=card, dtype=torch.bfloat16)
+    before = launches()
+    with torch.enable_grad():
+        wav = voc.model(mel)
+        wav.float().square().mean().backward()
+    assert launches() == before
+    assert all(p.grad is not None for p in voc.model.parameters())

@@ -134,6 +134,17 @@ def test_fused_call_span_tree(fused):
     assert not [s for s in found if s.name.startswith(("wavernn.", "k1."))]
 
 
+def test_vocode_span_counts_the_generators_convs(fused):
+    """``hifigan.vocode`` carries ``convs``, the generator's convolutions
+    (conv_pre, 2 upsamples each followed by 2 ResBlock1s of 2 conv pairs,
+    conv_post), and ``fused_convs``, those followed by the hand-written
+    epilogue: none on the CPU."""
+    _profiled(lambda: fused.tts_batch(TEXTS, REF_WAV, **CALL))
+    vocode = [s for s in tracing.spans() if s.name == "hifigan.vocode"]
+    assert [s.attrs for s in vocode] == [{"convs": 1 + 2 * (1 + 2 * 2 * 2) + 1,
+                                          "fused_convs": 0}]
+
+
 def test_staged_call_span_tree(staged):
     found = _tree(staged, STAGED_CHILDREN, fused=False)
     launches = [s for s in found if s.name == "k1.launch"]
