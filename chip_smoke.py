@@ -192,8 +192,9 @@ the VITS paths are timed once more with TF32 off. TF32 is off only inside
 ``full_f32()``, around the holds against plain versions and the parity
 checks. Every path is driven with the kernels' launch counts set to 0 just
 before and read just after; each kernel of a path must have launched, the
-epilogue as many times as the path's generator calls on the channels-last
-path have convs. Any failure raises and the script exits non-zero
+epilogue as many times as the path's generator calls that launch it
+(``conv_epilogue.uses_kernel``: a card's input with gradients off) have
+convs. Any failure raises and the script exits non-zero
 without the last line. It needs a CUDA card; without one it exits non-zero
 before any phase.
 """
@@ -257,7 +258,8 @@ from mockingbird_tpu_torch.models.vocoder.wavernn_train import (WaveRnnDataset, 
 from mockingbird_tpu_torch.models.vocoder.wavernn_train import train as wavernn_train
 from mockingbird_tpu_torch.ops import build
 from mockingbird_tpu_torch.ops.conv_epilogue import (conv_epilogue, conv_epilogue_plain,
-                                                     launches as epilogue_launches)
+                                                     launches as epilogue_launches,
+                                                     uses_kernel)
 from mockingbird_tpu_torch.ops.monotonic_align import (maximum_path, maximum_path_cuda,
                                                        maximum_path_plain)
 from mockingbird_tpu_torch.ops.wavernn_sample import (pack_wavernn_weights, plan, resident_blocks,
@@ -463,29 +465,29 @@ def read_counts() -> dict:
 
 
 def epilogues_per_call(gen: torch.nn.Module) -> int:
-    """The ``conv_epilogue`` launches of one channels-last call of a HiFi-GAN
-    or VITS generator: one after each conv, but VITS's ``conv_pre`` and
-    ``cond`` share one."""
+    """The ``conv_epilogue`` launches of one call of a HiFi-GAN or VITS
+    generator that launches the kernel: one after each conv, but VITS's
+    ``conv_pre`` and ``cond`` share one."""
     n = sum(isinstance(m, (Conv1d, ConvTranspose1d)) for m in gen.modules())
     return n - hasattr(gen, "cond")
 
 
 def count_generators() -> None:
     """From here on, each call of a HiFi-GAN or VITS generator on this
-    thread that takes the channels-last path (a CUDA input with gradients
-    off) adds its ``epilogues_per_call`` to the launches ``check_launches``
-    expects, generators built later included."""
+    thread whose epilogues launch the kernel (``uses_kernel``: a CUDA input
+    with gradients off) adds its ``epilogues_per_call`` to the launches
+    ``check_launches`` expects, generators built later included."""
     def hook(module, args):
         if (isinstance(module, (Generator, VitsGenerator)) and args
                 and threading.current_thread() is threading.main_thread()
-                and hifigan_module.channels_last_path(args[0])):
+                and uses_kernel(args[0])):
             _EPILOGUES["expected"] += epilogues_per_call(module)
     torch.nn.modules.module.register_module_forward_pre_hook(hook)
 
 
 def check_launches(name: str, **others: int) -> dict:
     """The launches since ``zero_counts``: ``conv_epilogue`` once after each
-    conv of the generator calls that took the channels-last path, the
+    conv of the generator calls that launch it, the
     kernels named in ``others`` as many times as given there, none of the
     rest. Returns them."""
     launches = read_counts()
@@ -498,8 +500,9 @@ def check_launches(name: str, **others: int) -> dict:
 @contextmanager
 def held_epilogues():
     """Inside, every ``conv_epilogue`` that the HiFi-GAN and VITS generators
-    launch is held against ``conv_epilogue_plain`` on the same inputs, bit
-    for bit (the plain version first: the kernel writes in place). Yields a
+    call must launch the kernel, and is held against ``conv_epilogue_plain``
+    on the same inputs, bit for bit (the plain version first: the kernel
+    writes in place). Yields a
     list with one record per launch: its shape, dtype, flags, the bytes it
     reads and writes, and the elements that differ."""
     real = hifigan_module.conv_epilogue
@@ -510,7 +513,10 @@ def held_epilogues():
         args = (None if bias is None else bias.to(y.dtype), residual, block_sum, n_blocks,
                 slope, tanh, keep_x)
         want = conv_epilogue_plain(y, *args)
+        launched = epilogue_launches()
         got = real(y, *args)
+        check(epilogue_launches() == launched + 1,
+              "a held conv_epilogue took its plain version, not the kernel")
         pairs = list(zip(got, want)) if keep_x else [(got, want)]
         diff = 0 if all(torch.equal(g, w) for g, w in pairs) else sum(
             int((g != w).sum()) for g, w in pairs)
@@ -753,9 +759,11 @@ def phase_tts(dev):
 
 def conv_flops(module, *inputs) -> float:
     """FLOPs of the convolutions of one ``module(*inputs)`` call (2 per
-    multiply-add), counted by hooks from each conv's shapes: a conv's output
-    elements times its kernel's (in/groups)·taps, a transposed conv's input
-    elements times its out·taps. Run on the meta device it costs nothing."""
+    multiply-add), counted from each conv's shapes at its ``forward`` and
+    at its channels-last ``product`` (the generators' convs): a conv's
+    output elements times its kernel's (in/groups)·taps, a transposed
+    conv's input elements times its out·taps. Run on the meta device it
+    costs nothing."""
     total = [0.0]
 
     def hook(m, args, out):
@@ -765,12 +773,24 @@ def conv_flops(module, *inputs) -> float:
         else:
             total[0] += 2.0 * out.numel() * float(np.prod(w.shape[1:]))
 
-    handles = [m.register_forward_hook(hook) for m in module.modules()
-               if isinstance(m, (Conv1d, Conv2d, ConvTranspose1d))]
+    def counted(m):
+        def product(*args, **kwargs):
+            out = type(m).product(m, *args, **kwargs)
+            hook(m, args, out)
+            return out
+        return product
+
+    convs = [m for m in module.modules() if isinstance(m, (Conv1d, Conv2d, ConvTranspose1d))]
+    handles = [m.register_forward_hook(hook) for m in convs]
+    for m in convs:
+        if hasattr(m, "product"):
+            m.product = counted(m)
     with torch.no_grad():
         module(*inputs)
     for h in handles:
         h.remove()
+    for m in convs:
+        m.__dict__.pop("product", None)
     return total[0]
 
 
@@ -3094,8 +3114,9 @@ def phase_epilogue(dev, flagship: dict, launches: int) -> dict:
                     draw() if h["residual"] else None, draw() if h["block_sum"] else None,
                     h["n_blocks"], h["slope"], h["tanh"], h["keep_x"])
             y = draw()
-            k_ms = cuda_ms(lambda: conv_epilogue(y, *args), reps=5)
-            p_ms = cuda_ms(lambda: conv_epilogue_plain(y, *args), reps=3)
+            with torch.no_grad():                   # where ``conv_epilogue`` launches the kernel
+                k_ms = cuda_ms(lambda: conv_epilogue(y, *args), reps=5)
+                p_ms = cuda_ms(lambda: conv_epilogue_plain(y, *args), reps=3)
             ms, plain_ms = ms + n * k_ms, plain_ms + n * p_ms
             n_bytes = next(x["bytes"] for x in held if tuple(x[k] for k in fields) == key)
             flags = [k for k in fields[2:] if h[k] not in (False, None, 0)]

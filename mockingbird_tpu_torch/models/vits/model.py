@@ -33,8 +33,7 @@ from ...ops.monotonic_align import maximum_path
 from ...parallel import multihost
 from ...text import symbols as _symbols
 from ..layers import Conv1d, ConvTranspose1d, Dense, LayerNorm, dropout
-from ..vocoder.hifigan import (LRELU_SLOPE, ResBlock1, ResBlock2, channels_last_path,
-                               fused_stages, upsample_valid)
+from ..vocoder.hifigan import LRELU_SLOPE, ResBlock1, ResBlock2, fused_stages
 from .modules import (
     ConvFlow, DDSConv, ElementwiseAffine, Flip, Log, ResidualCouplingLayer,
     TransformerEncoder, WN, generate_path, rand_slice_segments, sequence_mask,
@@ -136,10 +135,8 @@ class ResidualCouplingBlock(nn.Module):
 
 
 class VitsGenerator(nn.Module):
-    """HiFi-GAN decoder with gin conditioning: z (B, T, C) → wav (B, T·hop).
-    Channels-first inside; each transposed conv is ``upsample_valid``'s. On
-    a card with gradients off, channels-last from the first transposed conv
-    on, as HiFi-GAN's ``Generator.forward_channels_last``."""
+    """HiFi-GAN decoder with gin conditioning: z (B, T, C) → wav (B, T·hop),
+    channels-last throughout, as HiFi-GAN's ``Generator``."""
 
     def __init__(self, cfg: Any):
         super().__init__()
@@ -159,26 +156,12 @@ class VitsGenerator(nn.Module):
         self.conv_post = Conv1d(ch, 1, 7, bias=False, time_major=False)
 
     def forward(self, x, g=None):
-        c = self.cfg
         x = self.conv_pre(x)
         if g is not None:
             x = x + self.cond(g)
-        if channels_last_path(x):
-            # HiFi-GAN's inference path on the card (``Generator.forward_channels_last``)
-            a = conv_epilogue(x.contiguous(), slope=LRELU_SLOPE)
-            a = fused_stages(self, a)
-            return conv_epilogue(self.conv_post.product(a), tanh=True)[..., 0]
-        x = x.transpose(1, 2)                               # (B, C, T)
-        n_k = len(c.resblock_kernel_sizes)
-        for i, u in enumerate(c.upsample_rates):
-            x = upsample_valid(getattr(self, f"ups_{i}"), F.leaky_relu(x, LRELU_SLOPE), u)
-            xs = None
-            for j in range(n_k):
-                y = getattr(self, f"resblock_{i}_{j}")(x)
-                xs = y if xs is None else xs + y
-            x = xs / n_k
-        x = self.conv_post(F.leaky_relu(x))
-        return torch.tanh(x)[:, 0]
+        a = conv_epilogue(x.contiguous(), slope=LRELU_SLOPE)
+        a = fused_stages(self, a)
+        return conv_epilogue(self.conv_post.product(a), tanh=True)[..., 0]
 
 
 class DurationPredictor(nn.Module):

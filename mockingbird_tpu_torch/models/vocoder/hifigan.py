@@ -1,20 +1,22 @@
 """HiFi-GAN: the generator, its residual blocks and the period/scale
 discriminators.
 
-Port of ``mockingbird_tpu/models/vocoder/hifigan.py``. The modules run
-channels-first (B, C, T) inside, except the generator on a card with
-gradients off (``forward_channels_last``: (B, T, C) memory and one
-hand-written epilogue after each conv); a weight-normed conv is
-``layers.Conv1d(weight_norm=True)`` with the flax layout's ``<name>_conv``
-kernel and ``<name>`` gain. ``Generator`` takes and returns the JAX
-package's layout at its boundary: mel (B, T, 80) → wav (B, T·hop). The
-discriminators take wavs (B, T); their feature maps are channels-first.
+Port of ``mockingbird_tpu/models/vocoder/hifigan.py``. The generator
+runs channels-last, (B, T, C) memory from ``conv_pre`` to ``conv_post``,
+with one ``ops.conv_epilogue`` after each conv (the hand-written kernel on
+a card with gradients off, its plain version elsewhere); the residual
+blocks' own ``forward`` and the discriminators run channels-first
+(B, C, T). A weight-normed conv is ``layers.Conv1d(weight_norm=True)``
+with the flax layout's ``<name>_conv`` kernel and ``<name>`` gain.
+``Generator`` takes and returns the JAX package's layout at its boundary:
+mel (B, T, 80) → wav (B, T·hop). The discriminators take wavs (B, T);
+their feature maps are channels-first.
 ``HifiganDiscriminators`` (MPD + MSD) is what ``gan_train`` trains;
 VITS trains ``DiscriminatorS`` and ``DiscriminatorP`` under its own names.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -28,13 +30,6 @@ from ..layers import Conv1d, Conv2d, ConvTranspose1d, SpectralNorm
 LRELU_SLOPE = 0.1
 # flax's default slope, which the generators' last leaky ReLU takes
 LAST_SLOPE = 0.01
-
-
-def channels_last_path(x: torch.Tensor) -> bool:
-    """Whether a generator runs ``forward_channels_last`` on ``x``: on a
-    card with gradients off. The CPU and every call with gradients run the
-    unfused ``forward``, which the tests hold against the JAX package."""
-    return x.is_cuda and not torch.is_grad_enabled()
 
 
 def hifigan_config() -> Config:
@@ -74,13 +69,27 @@ def wn_conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, dilation: int
                   weight_norm=True, time_major=False)
 
 
+def residual_units(block: nn.Module) -> List[List[nn.Module]]:
+    """A residual block's units in the order it runs them: its convs grouped
+    by the index their names end in (``ResBlock1``'s ``convs1_i`` and
+    ``convs2_i``, ``ResBlock2``'s ``convs_i``). A module without convs has
+    none: it passes its input through."""
+    units: Dict[str, List[nn.Module]] = {}
+    for name, conv in block.named_children():
+        units.setdefault(name.rsplit("_", 1)[-1], []).append(conv)
+    return list(units.values())
+
+
 def fused_residuals(units, x: torch.Tensor, a: torch.Tensor, **tail) -> torch.Tensor:
     """A residual block on channels-last memory: for each unit (a list of
     convs), the convs in turn from ``a`` = leaky_relu(``x``), the last one's
     output added to ``x``. One ``conv_epilogue`` after each conv: its bias,
     then the next conv's leaky ReLU, or the residual add and both the new
     ``x`` and its leaky ReLU; after the last unit the residual add and
-    ``tail`` (the block sum, its division, the next activation)."""
+    ``tail`` (the block sum, its division, the next activation). No units:
+    ``x`` itself, with ``tail``."""
+    if not units:
+        return conv_epilogue(x.clone(), **tail)
     for i, convs in enumerate(units):
         for conv in convs[:-1]:
             a = conv_epilogue(conv.product(a), conv.bias, slope=LRELU_SLOPE)
@@ -108,12 +117,6 @@ class ResBlock1(nn.Module):
             x = xt + x
         return x
 
-    def fused(self, x: torch.Tensor, a: torch.Tensor, **tail) -> torch.Tensor:
-        """``forward`` on channels-last ``x`` (B, T, C) and its leaky ReLU
-        ``a``, ending in ``tail`` (``fused_residuals``)."""
-        return fused_residuals([[getattr(self, f"convs1_{i}"), getattr(self, f"convs2_{i}")]
-                                for i in range(self.n)], x, a, **tail)
-
 
 class ResBlock2(nn.Module):
     def __init__(self, channels: int, kernel: int = 3, dilations: Tuple[int, ...] = (1, 3)):
@@ -126,11 +129,6 @@ class ResBlock2(nn.Module):
         for i in range(self.n):
             x = getattr(self, f"convs_{i}")(F.leaky_relu(x, LRELU_SLOPE)) + x
         return x
-
-    def fused(self, x: torch.Tensor, a: torch.Tensor, **tail) -> torch.Tensor:
-        """As ``ResBlock1.fused``."""
-        return fused_residuals([[getattr(self, f"convs_{i}")] for i in range(self.n)], x, a,
-                               **tail)
 
 
 def upsample_valid(conv: ConvTranspose1d, x: torch.Tensor, u: int) -> torch.Tensor:
@@ -177,14 +175,17 @@ def fused_stages(gen: nn.Module, a: torch.Tensor) -> torch.Tensor:
             tail = {}
             if j == n_k - 1:
                 tail = dict(n_blocks=n_k, slope=LRELU_SLOPE if i < n_up - 1 else LAST_SLOPE)
-            xs = getattr(gen, f"resblock_{i}_{j}").fused(x, a, block_sum=xs, **tail)
+            xs = fused_residuals(residual_units(getattr(gen, f"resblock_{i}_{j}")), x, a,
+                                 block_sum=xs, **tail)
         a = xs
     return a
 
 
 class Generator(nn.Module):
-    """mel (B, T, 80) → wav (B, T·prod(rates)) in [-1, 1]. The mel is
-    transposed once at the entry; every layer after it is channels-first."""
+    """mel (B, T, 80) → wav (B, T·prod(rates)) in [-1, 1], channels-last
+    throughout: each conv's product (``layers.Conv1d.product``,
+    ``ConvTranspose1d.product``) followed by one ``conv_epilogue``, with
+    flax's arithmetic and rounding."""
 
     def __init__(self, cfg: Any):
         super().__init__()
@@ -207,33 +208,6 @@ class Generator(nn.Module):
         self.conv_post = wn_conv(ch0 // 2 ** len(c.upsample_rates), 1, 7)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        if channels_last_path(mel):
-            return self.forward_channels_last(mel)
-        c = self.cfg
-        n_k = len(c.resblock_kernel_sizes)
-        x = self.conv_pre(mel.transpose(1, 2))                     # (B, C, T)
-        for i, (u, k) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
-            x = F.leaky_relu(x, LRELU_SLOPE)
-            ups = getattr(self, f"ups_{i}")
-            if self.interp:
-                p = (k - 1) // 2
-                x = ups(F.pad(x.repeat_interleave(u, dim=-1), (p, p)))
-            else:
-                x = upsample_valid(ups, x, u)
-            xs = None
-            for j in range(n_k):
-                y = getattr(self, f"resblock_{i}_{j}")(x)
-                xs = y if xs is None else xs + y
-            x = xs / n_k
-        # flax's default slope (0.01) here, not LRELU_SLOPE
-        x = self.conv_post(F.leaky_relu(x))
-        return torch.tanh(x)[:, 0]
-
-    def forward_channels_last(self, mel: torch.Tensor) -> torch.Tensor:
-        """``forward`` with the activations (B, T, C) from ``conv_pre`` to
-        ``conv_post`` and one ``conv_epilogue`` after each conv: the same
-        arithmetic and rounding, without a transpose, a pad or an
-        element-wise pass of its own."""
         a = conv_epilogue(self.conv_pre.product(mel), self.conv_pre.bias, slope=LRELU_SLOPE)
         a = fused_stages(self, a)
         return conv_epilogue(self.conv_post.product(a), self.conv_post.bias, tanh=True)[..., 0]

@@ -14,9 +14,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ... import resolve_device, seeded
+from ... import resolve_device, seeded, tracing
 from ...config import Config
 from ...dsp import encode_mulaw8_device
+from ...ops.conv_epilogue import launches
 from ...weights import load_flax, load_npz
 from ..layers import Conv1d, ConvTranspose1d
 from .fregan import FreGanGenerator, fregan_config
@@ -98,17 +99,23 @@ class GanVocoder:
         device: ``pcm_format`` "int16" (the default), "mulaw8" (uint8, one
         byte per sample; decode on the host with
         ``dsp.decode_mulaw8_to_int16``) or "float32"; ``pcm16=False`` with no
-        ``pcm_format`` means "float32"."""
+        ``pcm_format`` means "float32". Records the span ``hifigan.vocode``
+        with ``convs``, the generator's convolutions, and ``fused_convs``,
+        the epilogue kernel's launches on the calling thread in this call."""
         if pcm_format is None:
             pcm_format = "int16" if pcm16 else "float32"
         if pcm_format not in ("int16", "mulaw8", "float32"):
             raise KeyError(pcm_format)
-        wav = self._fwd(mel_dev)
-        if pcm_format == "int16":
-            return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
-        if pcm_format == "mulaw8":
-            return encode_mulaw8_device(wav)
-        return wav
+        with tracing.span("hifigan.vocode") as vocode:
+            launched = launches()
+            wav = self._fwd(mel_dev)
+            vocode.set("convs", self.n_convs)
+            vocode.set("fused_convs", launches() - launched)
+            if pcm_format == "int16":
+                return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+            if pcm_format == "mulaw8":
+                return encode_mulaw8_device(wav)
+            return wav
 
 
 def load_vocoder(model_fpath: Union[str, Path, None] = None, verbose: bool = True,

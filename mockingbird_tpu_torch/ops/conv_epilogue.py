@@ -10,11 +10,12 @@ order, each step optional:
     s   = (block_sum + x) / n_blocks
     out = leaky_relu(s, slope)  or  tanh(s)
 
-with the operators and the rounding of the unfused path
-(``models/vocoder/hifigan.py``): below float32 each step rounds to the
-storage type, as PyTorch's separate operators do. ``conv_epilogue``
-launches the kernel for CUDA tensors and takes the plain version for CPU
-tensors; the plain version is the kernel's yardstick on the card.
+as PyTorch's separate operators compute it (the residual blocks' own
+``forward`` in ``models/vocoder/hifigan.py``): below float32 each step
+rounds to the storage type. ``conv_epilogue`` launches the kernel on a
+CUDA tensor with gradients off (``uses_kernel``), where nothing needs an
+autograd graph, and takes the plain version everywhere else; the plain
+version is the kernel's yardstick on the card.
 """
 from __future__ import annotations
 
@@ -38,6 +39,13 @@ def launches() -> int:
     count, so that a caller can count its own call's launches while other
     threads launch too)."""
     return getattr(_counts, "n", 0)
+
+
+def uses_kernel(y: torch.Tensor) -> bool:
+    """Whether ``conv_epilogue`` launches the kernel on ``y``: on a card
+    with gradients off. The kernel writes in place and records no autograd
+    graph."""
+    return y.is_cuda and not torch.is_grad_enabled()
 
 
 def conv_epilogue_plain(y: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -68,12 +76,12 @@ def conv_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor] = None,
     ``block_sum`` shaped as ``y``; ``n_blocks`` > 0 divides by it. Returns
     the chain's last value, or ``(x, last)`` with ``keep_x``.
 
-    On a card the kernel writes in place where nothing reads the old
-    values: the last value goes into ``y``, or into ``block_sum`` where
-    that is given and no activation follows; with ``keep_x``, ``x`` goes
-    into ``y`` and the last value into a new tensor. Raises on what the
-    kernel does not take."""
-    if y.device.type != "cuda":
+    Where it launches the kernel (``uses_kernel``), the kernel writes in
+    place where nothing reads the old values: the last value goes into
+    ``y``, or into ``block_sum`` where that is given and no activation
+    follows; with ``keep_x``, ``x`` goes into ``y`` and the last value into
+    a new tensor. Raises on what the kernel does not take."""
+    if not uses_kernel(y):
         return conv_epilogue_plain(y, bias, residual, block_sum, n_blocks, slope, tanh, keep_x)
     if y.dtype not in _DTYPES:
         raise TypeError(f"conv_epilogue takes float32 or bfloat16, not {y.dtype}")

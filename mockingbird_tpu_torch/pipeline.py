@@ -31,7 +31,6 @@ from .dsp import decode_mulaw8_to_int16, save_wav
 from .models.encoder import SpeakerEncoderInference
 from .models.tacotron import Synthesizer
 from .models.vocoder import load_vocoder
-from .ops.conv_epilogue import launches as epilogue_launches
 
 
 class VoiceCloningPipeline:
@@ -199,13 +198,7 @@ class VoiceCloningPipeline:
             mels_dev, frame_lens = self.synthesizer.synthesize_mels_device(
                 chunk, embeds_all[i : i + len(chunk)], style_idx=style_idx,
                 min_stop_token=min_stop_token, steps=steps)
-            with tracing.span("hifigan.vocode") as vocode:
-                launched = epilogue_launches()
-                pcm_dev = self.vocoder.vocode_device(mels_dev, pcm16=pcm16,
-                                                     pcm_format=pcm_format)
-                # the generator's convs, and those followed by the hand epilogue
-                vocode.set("convs", self.vocoder.n_convs)
-                vocode.set("fused_convs", epilogue_launches() - launched)
+            pcm_dev = self.vocoder.vocode_device(mels_dev, pcm16=pcm16, pcm_format=pcm_format)
             pending.append((len(chunk), pcm_dev, frame_lens))
         wavs: List[np.ndarray] = []
         for n, pcm_dev, frame_lens in pending:

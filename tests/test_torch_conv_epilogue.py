@@ -1,44 +1,22 @@
-"""The generators' channels-last inference path on the CPU: the plain
-version of the conv epilogue (``ops/conv_epilogue.py``), which the kernel
-is held against on the card, equals the unfused operators of
-``hifigan.py`` bit for bit in bf16; ``forward_channels_last`` (HiFi-GAN)
-and the VITS decoder's channels-last branch, run here with the plain
-epilogue, equal the unfused ``forward`` (float64 to rounding, bf16 bit for
-bit); and the CPU and gradients take the unfused path.
+"""The plain version of the generators' conv epilogue
+(``ops/conv_epilogue.py``), which the kernel is held against on the card,
+equals the unfused operators of flax's HiFi-GAN bit for bit in bf16; the
+CPU and every call with gradients take the plain version; a residual
+block's convs run in its own order on the channels-last path.
 
-No JAX: the unfused ``forward`` is the yardstick here, and
-``test_torch_gan_vocoder.py`` / ``test_torch_vits.py`` hold it against the
-JAX package.
+No JAX: ``test_torch_gan_vocoder.py`` / ``test_torch_vits.py`` hold the
+generators against the JAX package.
 """
 import pytest
 import torch
 import torch.nn.functional as F
 
-from mockingbird_tpu_torch.config import Config
-from mockingbird_tpu_torch.models.vits import model as vits_model
-from mockingbird_tpu_torch.models.vits.model import VitsGenerator, vits_config
 from mockingbird_tpu_torch.models.vocoder import GanVocoder, hifigan
-from mockingbird_tpu_torch.models.vocoder.hifigan import Generator, hifigan_config
 from mockingbird_tpu_torch.ops import conv_epilogue as ce
 
-GENERATORS = {
-    "small": dict(upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8],
-                  upsample_initial_channel=32, resblock_kernel_sizes=[3, 7],
-                  resblock_dilation_sizes=[[1, 3], [1, 3]], hop_size=16),
-    # odd rates (output_padding 1), one block a stage
-    "odd_rates": dict(upsample_rates=[5, 3], upsample_kernel_sizes=[10, 6],
-                      upsample_initial_channel=32, resblock_kernel_sizes=[3],
-                      resblock_dilation_sizes=[[1, 3, 5]], hop_size=15),
-    # ResBlock2, an even kernel (asymmetric SAME padding), a transposed
-    # kernel whose window needs the sliced output
-    "resblock2": dict(upsample_rates=[4, 2], upsample_kernel_sizes=[8, 5],
-                      upsample_initial_channel=16, resblock="2", resblock_kernel_sizes=[3, 4],
-                      resblock_dilation_sizes=[[1, 3], [1, 3]], hop_size=8),
-    "interpolation": dict(upsample_rates=[2, 2], upsample_kernel_sizes=[4, 4],
-                          upsample_initial_channel=16, use_interpolation=True,
-                          resblock_kernel_sizes=[3, 5], resblock_dilation_sizes=[[1, 3], [1, 3]],
-                          hop_size=4),
-}
+SMALL = dict(upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8], upsample_initial_channel=32,
+             resblock_kernel_sizes=[3, 7], resblock_dilation_sizes=[[1, 3], [1, 3]],
+             hop_size=16)
 
 
 def _bf16(*shape, gen):
@@ -46,9 +24,10 @@ def _bf16(*shape, gen):
 
 
 def _unfused(case, y, b, res, xs, n_k):
-    """What ``hifigan.py``'s unfused path computes on channels-first
-    (B, C, T) tensors after a conv whose product is ``y``: ``with_bias``'s
-    add, the residual add, the block sum, its division, the activations."""
+    """What the unfused operators (the residual blocks' own ``forward``,
+    ``layers.with_bias``) compute on channels-first (B, C, T) tensors after
+    a conv whose product is ``y``: the bias add, the residual add, the
+    block sum, its division, the activations."""
     x = y + b.reshape(1, -1, 1)
     if case == "conv":                       # a ResBlock's first conv, conv_pre
         return F.leaky_relu(x, hifigan.LRELU_SLOPE)
@@ -101,76 +80,46 @@ def test_plain_epilogue_is_the_unfused_ops_bit_for_bit(case, channels):
         assert torch.equal(cf(w), g)
 
 
-def _generator(name, dtype, seed=0):
-    torch.manual_seed(seed)
-    g = Generator(Config(hifigan_config()).merge(GENERATORS[name]))
-    with torch.no_grad():
-        for p in g.parameters():
-            p.normal_(0, 0.3)
-    return g.to(dtype).eval()
-
-
-@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
-@pytest.mark.parametrize("name", sorted(GENERATORS))
-def test_channels_last_generator_equals_forward(name, dtype):
-    """The channels-last path with the plain epilogue against ``forward``:
-    float64 to 1e-12 (padding, windows and layouts), bf16 bit for bit (the
-    same rounding points; the CPU's convolutions agree across layouts)."""
-    g = _generator(name, dtype)
-    mel = torch.randn(2, 13, 80, generator=torch.Generator().manual_seed(1)).to(dtype)
-    with torch.no_grad():
-        want = g(mel)
-        got = g.forward_channels_last(mel)
-    assert got.shape == want.shape
-    if dtype == torch.float64:
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
-    else:
-        assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
-def test_vits_decoder_channels_last_equals_forward(monkeypatch, dtype):
-    """The VITS decoder's channels-last branch, taken here by patching the
-    choice, against its unfused branch."""
-    cfg = vits_config().merge(dict(upsample_initial_channel=32, upsample_rates=[4, 2, 2],
-                                   upsample_kernel_sizes=[8, 4, 4], gin_channels=8,
-                                   inter_channels=12))
-    torch.manual_seed(0)
-    dec = VitsGenerator(cfg)
-    with torch.no_grad():
-        for p in dec.parameters():
-            p.normal_(0, 0.3)
-    dec = dec.to(dtype).eval()
-    z = torch.randn(2, 11, 12, dtype=dtype)
-    g = torch.randn(2, 1, 8, dtype=dtype)
-    with torch.no_grad():
-        want = dec(z, g=g)
-        monkeypatch.setattr(vits_model, "channels_last_path", lambda x: True)
-        got = dec(z, g=g)
-    assert got.shape == want.shape == (2, 11 * 16)
-    if dtype == torch.float64:
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
-    else:
-        assert torch.equal(got, want)
-
-
-def test_cpu_and_gradients_take_the_unfused_path(monkeypatch):
-    """``channels_last_path`` is true only for a card's tensor with
-    gradients off; on the CPU ``forward`` runs unfused and the vocoder
-    launches nothing."""
-    def refuse(self, mel):
-        raise AssertionError("the channels-last path ran on the CPU")
-    monkeypatch.setattr(Generator, "forward_channels_last", refuse)
-    voc = GanVocoder("hifigan", cfg=GENERATORS["small"], verbose=False, device="cpu")
+def test_cpu_and_gradients_take_the_plain_epilogue():
+    """``uses_kernel`` is true only for a card's tensor with gradients off:
+    on the CPU the vocoder launches nothing, and a backward through a
+    generator call reaches every parameter."""
+    voc = GanVocoder("hifigan", cfg=SMALL, verbose=False, device="cpu")
     assert voc.n_convs == 1 + 2 * (1 + 2 * 4) + 1
     before = ce.launches()
     wav = voc.vocode_device(torch.randn(1, 16, 80))
     assert wav.dtype == torch.int16 and wav.shape == (1, 16 * 16)
     assert ce.launches() == before
+    gen = voc.model.train()
+    gen.zero_grad()
+    gen(torch.randn(2, 8, 80)).square().mean().backward()
+    assert ce.launches() == before
+    assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in gen.parameters())
     x = torch.zeros(1)
-    assert not hifigan.channels_last_path(x)
+    assert not ce.uses_kernel(x)
     with torch.no_grad():
-        assert not hifigan.channels_last_path(x)
-    meta = torch.empty(1, device="meta")
+        assert not ce.uses_kernel(x)
+        assert not ce.uses_kernel(torch.empty(1, device="meta"))
+
+
+@pytest.mark.parametrize("block", ["resblock1", "resblock2", "identity"])
+def test_residual_units_follow_the_blocks_order(block):
+    """``residual_units`` groups a block's convs by their index in the order
+    the block's ``forward`` runs them, and ``fused_residuals`` on those
+    units equals ``forward`` channels-first; a module without convs has no
+    units and passes its input through, with the stage's tail."""
+    torch.manual_seed(0)
+    mod = {"resblock1": lambda: hifigan.ResBlock1(8, 3, (1, 3)),
+           "resblock2": lambda: hifigan.ResBlock2(8, 3, (1, 3)),
+           "identity": torch.nn.Identity}[block]()
+    units = hifigan.residual_units(mod)
+    names = {id(m): n for n, m in mod.named_children()}
+    want = {"resblock1": [["convs1_0", "convs2_0"], ["convs1_1", "convs2_1"]],
+            "resblock2": [["convs_0"], ["convs_1"]], "identity": []}[block]
+    assert [[names[id(m)] for m in unit] for unit in units] == want
+    x, s = torch.randn(2, 12, 8), torch.randn(2, 12, 8)
+    a = F.leaky_relu(x, hifigan.LRELU_SLOPE)
     with torch.no_grad():
-        assert not hifigan.channels_last_path(meta)
+        got = hifigan.fused_residuals(units, x, a, block_sum=s, n_blocks=2, slope=0.1)
+        ref = mod(x.transpose(1, 2)).transpose(1, 2)
+    torch.testing.assert_close(got, F.leaky_relu((s + ref) / 2, 0.1), rtol=1e-5, atol=1e-6)

@@ -1,7 +1,8 @@
 """Parity of the port's GAN vocoders with the JAX package: the HiFi-GAN
-``Generator`` (small, stock and sidecar rates, the interpolation branch,
-ResBlock2, an even resblock kernel) and ``FreGanGenerator`` (small and stock
-rates) at 32 channels, ``dwt_haar``,
+``Generator`` (small, stock, sidecar and odd rates, the interpolation
+branch, ResBlock2, an even resblock kernel, a sliced transposed window; in
+bf16 too) and ``FreGanGenerator`` (small and stock rates) at 32 channels,
+``dwt_haar``,
 the committed ``saved_models/gan_run`` export at full width, ``GanVocoder``
 (f32 and ``half=True``), its PCM formats, and the mu-law helpers. flax
 parameters are drawn from a numpy seed at the shapes flax's ``init`` gives,
@@ -37,6 +38,14 @@ SMALL = dict(upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8], upsample_initi
              segment_size=1600, hop_size=16)
 SIDECAR = dict(SMALL, upsample_rates=[8, 8, 4], upsample_kernel_sizes=[16, 16, 8],
                hop_size=256)
+# odd rates (output_padding 1), one block a stage
+ODD_RATES = dict(upsample_rates=[5, 3], upsample_kernel_sizes=[10, 6],
+                 resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3, 5]], hop_size=15)
+# ResBlock2, an even resblock kernel, and a transposed kernel (k=5, u=2)
+# whose window the conv's own padding cannot take: the output is sliced
+SLICED_WINDOW = dict(upsample_rates=[4, 2], upsample_kernel_sizes=[8, 5], resblock="2",
+                     resblock_kernel_sizes=[3, 4], resblock_dilation_sizes=[[1, 3], [1, 3]],
+                     hop_size=8)
 FREGAN = dict(upsample_rates=[4, 2, 2], upsample_kernel_sizes=[8, 4, 4],
               upsample_initial_channel=32, resblock_kernel_sizes=[3, 5],
               resblock_dilation_sizes=[[1, 3], [1, 3]], top_k=2, hop_size=16)
@@ -95,6 +104,8 @@ def rel_l2(a, b):
     # flax SAME pads an even kernel one more on the right; the port computes
     # flax's padding rather than assume a symmetric one
     ("even resblock kernel", dict(resblock_kernel_sizes=[4], resblock_dilation_sizes=[[1, 2]])),
+    ("odd rates", ODD_RATES),
+    ("sliced window", SLICED_WINDOW),
 ])
 def test_generator_matches_jax(name, extra):
     cfg = dict(SMALL, **extra)
@@ -107,6 +118,29 @@ def test_generator_matches_jax(name, extra):
         out = tmod(torch.from_numpy(mel)).numpy()
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name,extra", [
+    ("small rates", {}),
+    ("odd rates", ODD_RATES),
+    ("sliced window", SLICED_WINDOW),
+    ("interpolation", dict(use_interpolation=True)),
+])
+def test_half_generator_matches_jax_half(name, extra):
+    """Every weight and the mel in bf16 on both sides (jitted on the JAX
+    side, as ``GanVocoder(half=True)`` runs it): relative L2 under 2e-2,
+    the tolerance of ``test_half_vocoder_matches_jax_half``."""
+    cfg = dict(SMALL, **extra)
+    mel = mel_batch()
+    jmod = jh.Generator(JConfig(jh.hifigan_config()).merge(cfg).freeze())
+    params = flax_params(jmod, mel)
+    fwd = jax.jit(lambda p, m: jmod.apply({"params": p}, m.astype(jnp.bfloat16))
+                  .astype(jnp.float32))
+    ref = np.asarray(fwd(jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), params), mel))
+    voc = GanVocoder("hifigan", cfg=cfg, variables=params, verbose=False, device="cpu")
+    out = voc._fwd(torch.from_numpy(mel)).numpy()
+    assert out.shape == ref.shape
+    assert rel_l2(out, ref) < 2e-2, rel_l2(out, ref)
 
 
 @pytest.mark.parametrize("name,extra", [

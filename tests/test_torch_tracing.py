@@ -1,8 +1,9 @@
 """The port's program spans (``mockingbird_tpu_torch/tracing.py``): off
 outside a profiler session, the same output with them on and off, the span
 tree of a fused, a staged and a VITS ``tts_batch`` call at small widths on
-the CPU, VITS's frame counters, the recorder's arithmetic, its buffer and its threads; and on a CUDA
-card, the spans against the kernels on the profiler's clock.
+the CPU, the vocoder's own span, VITS's frame counters, the recorder's
+arithmetic, its buffer and its threads; and on a CUDA card, the spans
+against the kernels on the profiler's clock.
 
 The card case skips without one. On the card's machine it runs as
 
@@ -143,6 +144,19 @@ def test_vocode_span_counts_the_generators_convs(fused):
     vocode = [s for s in tracing.spans() if s.name == "hifigan.vocode"]
     assert [s.attrs for s in vocode] == [{"convs": 1 + 2 * (1 + 2 * 2 * 2) + 1,
                                           "fused_convs": 0}]
+
+
+@pytest.mark.parametrize("pcm_format", ["int16", "mulaw8", "float32"])
+def test_vocode_device_records_its_own_span(fused, pcm_format):
+    """``vocode_device`` called alone, outside ``tts_batch``, records one
+    root ``hifigan.vocode`` span around its whole call, the quantisation
+    included, with the same attributes."""
+    mel = torch.randn(2, 8, 80)
+    wav = _profiled(lambda: fused.vocoder.vocode_device(mel, pcm_format=pcm_format))
+    assert wav.shape == (2, 8 * 16)
+    vocode = tracing.spans()
+    assert [(s.name, s.parent, s.attrs) for s in vocode] == [
+        ("hifigan.vocode", None, {"convs": 1 + 2 * (1 + 2 * 2 * 2) + 1, "fused_convs": 0})]
 
 
 def test_staged_call_span_tree(staged):

@@ -1,6 +1,6 @@
 """Parity of the port's VITS with the JAX package at small widths (the
 ``small_cfg`` of ``tests/test_vits.py``): every module against its flax
-counterpart, the ``Vits`` training forward (``train=False``, JAX's own
+counterpart (the decoder in bf16 too), the ``Vits`` training forward (``train=False``, JAX's own
 draws handed in), ``infer`` (held at JAX's durations past the ceil, which
 is checked by itself on identical inputs) and ``reconstruct``, the
 VITS spectrogram, and the committed export. flax parameters are drawn from
@@ -251,6 +251,34 @@ def test_resblocks():
                             (jh.ResBlock2, th.ResBlock2, (1, 3))):
         v, mod = pair(jcls(8, 3, dil), tcls(8, 3, dil), x, sd=0.05)
         close(mod(t(x).transpose(1, 2)).transpose(1, 2), jcls(8, 3, dil).apply(v, x))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("speaker", [True, False], ids=["speaker", "no_speaker"])
+def test_decoder_matches_jax(speaker, dtype):
+    """``VitsGenerator`` against the JAX package's, with the speaker
+    conditioning (``cond``) and without it (``gin_channels`` 0): float32 to
+    ``ATOL``; bf16 weights and inputs on both sides (jitted on the JAX side)
+    to a relative L2 under 2e-2, HiFi-GAN's bf16 tolerance."""
+    cfg = dict(SMALL, gin_channels=16 if speaker else 0)
+    z = rnd(2, 11, 32, seed=4)
+    g = rnd(2, 1, 16, seed=5) if speaker else None
+    jd = jmodel.VitsGenerator(JConfig(jmodel.vits_config()).merge(cfg).freeze())
+    v, dec = pair(jd, tmodel.VitsGenerator(tmodel.vits_config().merge(cfg)), z, g, sd=0.05)
+    dt = jnp.dtype(dtype)
+    v = jax.tree.map(lambda a: a.astype(dt), v)
+    ref = np.asarray(jax.jit(lambda v, z, g: jd.apply(v, z, g).astype(jnp.float32))(
+        v, z.astype(dt), None if g is None else g.astype(dt)))
+    dec = dec.to(getattr(torch, dtype)).eval()
+    with torch.no_grad():
+        got = dec(t(z).to(getattr(torch, dtype)),
+                  None if g is None else t(g).to(getattr(torch, dtype))).float()
+    assert got.shape == ref.shape == (2, 11 * 16)
+    if dtype == "float32":
+        close(got, ref)
+    else:
+        err = float(np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref))
+        assert err < 2e-2, err
 
 
 # ---------------------------------------------------------------------------
