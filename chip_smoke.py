@@ -643,6 +643,15 @@ def hold_labels(kernel: torch.Tensor, plain: torch.Tensor, gaps: torch.Tensor,
     return compared, full, worst, err
 
 
+def k1_passes(pl) -> str:
+    """How a K1 launch of plan ``pl`` takes its folds: bf16, every layer in
+    one pass of 64-fold tiles through the shared-memory ring; f32, stages."""
+    if pl.slots:
+        return (f"{len(pl.fold_tiles())} fold tiles of 64 in one pass through a ring of "
+                f"{pl.slots}")
+    return f"{pl.fchunk} folds per stage"
+
+
 def hold_k1_call(w_f32, w_bf16, mels, aux, seed, n_classes) -> float:
     """K1 at one path's call against its plain version, greedy and sampled,
     in f32 and in bf16, with the near-tie rule of ``hold_labels``; prints
@@ -1926,7 +1935,7 @@ def phase_wavernn_train(dev, tmp: Path):
             pl = plan(rnn, fc, n_classes, aux.shape[2] // 4, mels.shape[2], f, dtype,
                       resident_blocks(dev, dtype))
             print(f"  plan ({dtype}, F={f}): grid {pl.grid} blocks of {pl.nu} units, "
-                  f"{pl.fchunk} folds per stage, {pl.staged_bytes} B staged per step")
+                  f"{k1_passes(pl)}, {pl.staged_bytes} B staged per step")
         k1_err = hold_k1_call(w_f32, w_bf16, mels, aux, seed, n_classes)
         k1_ms = cuda_ms(lambda: wavernn_sample(w_bf16, mels, aux, seed, n_classes), reps=3)
         k1_plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))
@@ -2992,8 +3001,8 @@ def phase_k1(dev, pipe, captured, launches, path_err):
             pl = plan(rnn, fc, n_classes, aux_d, mels.shape[2], f, dtype, resident)
             print(f"  plan ({dtype}, F={f}, {sms} SMs, {resident} blocks resident in clusters "
                   f"of 4): grid {pl.grid} blocks of {pl.nu} units, {pl.nv} fc columns, "
-                  f"{pl.nq} classes; {pl.smem} B of shared memory per block; {pl.fchunk} "
-                  f"folds per stage; exchanged per step {pl.exchange_bytes} B written, "
+                  f"{pl.nq} classes; {pl.smem} B of shared memory per block; "
+                  f"{k1_passes(pl)}; exchanged per step {pl.exchange_bytes} B written, "
                   f"{pl.staged_bytes} B staged into all blocks (L2 serves each row once per "
                   f"cluster of 4)")
         # the plain version draws the kernel's own Philox noise, so sampled
@@ -3047,7 +3056,7 @@ def phase_k1(dev, pipe, captured, launches, path_err):
             pl = plan(rnn, fc, n_classes, aux_d, mels.shape[2], fx, torch.bfloat16,
                       resident_blocks(dev, torch.bfloat16))
             print(f"  F={fx}: K1 {tm:.3f} ms ({tm / t * 1e3:.2f} us per step), K1b {fm:.3f} ms "
-                  f"({fm / t * 1e3:.2f} us per step); {pl.fchunk} folds per stage, "
+                  f"({fm / t * 1e3:.2f} us per step); {k1_passes(pl)}, "
                   f"{pl.staged_bytes / 2**20:.1f} MiB staged into all blocks per step")
         ms, ms_b = times[f]
         plain_ms = cuda_ms(lambda: wavernn_sample_plain(w_bf16, mels, aux, seed, n_classes))

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from ... import resolve_device, seeded, tracing
 from ...config import Config
 from ...dsp import decode_mu_law, inv_preemphasis_np
-from ...ops.wavernn_sample import pack_wavernn_weights, wavernn_sample
+from ...ops.wavernn_sample import pack_wavernn_weights, tensor_core_launches, wavernn_sample
 from ...weights import load_flax, load_npz
 from ..layers import Dense, FlaxBatchNorm, FusedGRUCell, with_bias
 from .distribution import sample_from_discretized_mix_logistic
@@ -332,14 +332,19 @@ class WaveRnnVocoder:
     def _run_sampler(self, mels_f: torch.Tensor, aux_f: torch.Tensor, seed: int,
                      greedy: bool) -> torch.Tensor:
         """The sampler over conditioning (F, T, ·) → labels (F, T), with the
-        packed weights (packed on first use)."""
+        packed weights (packed on first use). The ``k1.launch`` span's
+        ``tensor_core`` is 1 when the launch's products ran on the tensor
+        cores, else 0 (the f32 parity mode, the plain version)."""
         with tracing.span("k1.launch") as launch:
             launch.set("F", mels_f.shape[0])
             launch.set("T", mels_f.shape[1])
             if self.packed is None:
                 self.packed = pack_wavernn_weights(self.model)
-            return wavernn_sample(self.packed, mels_f, aux_f, seed, self.model.n_classes,
-                                  greedy=greedy)
+            before = tensor_core_launches()
+            labels = wavernn_sample(self.packed, mels_f, aux_f, seed, self.model.n_classes,
+                                    greedy=greedy)
+            launch.set("tensor_core", tensor_core_launches() - before)
+            return labels
 
     @torch.no_grad()
     def generate(self, mels_f: torch.Tensor, aux_f: torch.Tensor, seed: int = 0,

@@ -12,8 +12,12 @@ The kernel is persistent and weight-stationary: one cooperative launch of
 at most one block per SM, in clusters of 4, each block holding its slice of
 every weight matrix in shared memory for the whole launch and exchanging
 layer outputs with the others through global memory between grid barriers.
-``plan`` places the slices, a pure function of the widths, the fold count,
-the weight dtype and the blocks the card keeps resident in clusters of 4
+With bf16 weights its products run on the tensor cores (``wgmma``), each
+layer's exchanged rows and conditioning columns streamed through a ring of
+64-fold tiles in shared memory (``cond_tiles`` lays the conditioning out as
+those tiles); f32 weights (the parity mode) take staged FMA tiles. ``plan``
+places the slices, a pure function of the widths, the fold count, the
+weight dtype and the blocks the card keeps resident in clusters of 4
 (``resident_blocks``).
 
 ``wavernn_sample`` launches the kernel for CUDA tensors and takes the plain
@@ -30,12 +34,14 @@ against the plain one.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import torch
 
 _MASK32 = 0xFFFFFFFF
+_counts = threading.local()
 # Gumbel noise for this many (step, fold, class) entries at a time
 _NOISE_CHUNK = 1 << 22
 
@@ -46,6 +52,8 @@ W_NAMES = ("I_w", "I_b", "g1_wi", "g1_bi", "g1_wh", "g1_bn",
 
 SMEM_LIMIT = 232448      # dynamic shared memory one block may use on sm_90
 CLUSTER = 4              # blocks per cluster: they share the staging of exchanged rows
+TILE = 64                # bf16: folds per tile (wgmma's M) and columns per tile
+MIN_SLOTS, MAX_SLOTS = 8, 32  # bf16: tiles in the shared-memory ring
 
 
 def _ceil(a: int, b: int) -> int:
@@ -56,19 +64,25 @@ def _ceil(a: int, b: int) -> int:
 class Plan:
     """Where the kernel's launch puts things: ``grid`` blocks, each owning
     ``nu`` GRU units (their I, g1 and g2 rows), ``nv`` columns of fc1 and of
-    fc2 and ``nq`` classes of fc3; activations staged ``fchunk`` folds at a
-    time; ``smem`` bytes of shared memory per block; workspaces of
-    ``exchange_elems`` (weight dtype), ``arg_elems`` (uint64) and
-    ``state_elems`` (f32) elements; ``exchange_bytes`` written to the
-    exchange buffers per step (by all blocks) and ``staged_bytes`` staged
+    fc2 and ``nq`` classes of fc3; ``smem`` bytes of shared memory per block;
+    workspaces of ``exchange_elems`` (weight dtype), ``arg_elems`` (uint64)
+    and ``state_elems`` (f32) elements; ``exchange_bytes`` written to the
+    exchange buffers per step (by all blocks) and ``staged_bytes`` copied
     from them into shared memory per step (summed over blocks; a cluster's
-    blocks share one read of each row from L2). ``grid`` is a multiple of
-    ``CLUSTER``; blocks past the last owner own nothing."""
+    blocks share one read from L2). ``grid`` is a multiple of ``CLUSTER``;
+    blocks past the last owner own nothing.
+
+    bf16 weights: every layer's input streams through a ring of ``slots``
+    tiles of ``TILE`` folds x ``TILE`` columns, all ``folds`` in one pass
+    (``fold_tiles``; ``fchunk`` is their span); f32 weights: activations
+    staged ``fchunk`` folds at a time (``slots`` 0)."""
     grid: int
     nu: int
     nv: int
     nq: int
+    folds: int
     fchunk: int
+    slots: int
     smem: int
     exchange_elems: int
     arg_elems: int
@@ -82,13 +96,41 @@ class Plan:
         return [(min(b * per_block, width), min((b + 1) * per_block, width))
                 for b in range(self.grid)]
 
+    def fold_tiles(self) -> List[Tuple[int, int]]:
+        """The [start, stop) folds of each pass of a layer's product: bf16,
+        the ``TILE``-fold tiles of wgmma's M side (the last ragged when
+        ``folds`` is not a multiple of it); f32, the stages."""
+        step = TILE if self.slots else self.fchunk
+        return [(f, min(f + step, self.folds)) for f in range(0, self.folds, step)]
+
 
 def _smem_bytes(rows, ks, ksmax, fchunk, nbias, wbytes) -> int:
-    """``layout`` in csrc/wavernn_sample.cu: weight slices, the activation
-    stage [fchunk][ksmax], the f32 biases, then the staging mbarrier,
-    16-byte aligned."""
+    """``layout`` in csrc/wavernn_sample.cu (f32): weight slices, the
+    activation stage [fchunk][ksmax], the f32 biases, then the staging
+    mbarrier, 16-byte aligned."""
     elems = sum(r * k for r, k in zip(rows, ks)) + fchunk * ksmax
     return _ceil(_ceil(elems * wbytes, 16) * 16 + 4 * nbias, 16) * 16 + 16
+
+
+def _ring_blocks(rnn: int, fc: int, aux_d: int, n_mels: int):
+    """bf16: the 64-column K blocks of each weight slice of ``ring_layout``,
+    the exchanged columns, then the conditioning columns, and I's x."""
+    kr, kf, ka, ki = (_ceil(k, TILE) for k in (rnn, fc, aux_d, n_mels + aux_d))
+    return (ki + 1, kr, kr, kr + ka, kr, kr + ka, kf + ka, kf)
+
+
+def _ring_weight_bytes(rows, blocks) -> int:
+    """bf16: the swizzled weight slices of ``ring_layout``, each [blocks][n][64]
+    with its rows padded to n, a multiple of 8 (wgmma's N)."""
+    return sum(_ceil(r, 8) * 8 * b * TILE * 2 for r, b in zip(rows, blocks))
+
+
+def _ring_bytes(weight_bytes, slots, nbias) -> int:
+    """``ring_layout`` in csrc/wavernn_sample.cu (bf16): the weight slices,
+    the ring, the f32 biases, the ring's two mbarriers a slot, and 1024 bytes
+    to align the base to the swizzle's period."""
+    tiles = slots * TILE * TILE * 2
+    return _ceil(weight_bytes + tiles + 4 * nbias, 16) * 16 + 16 * slots + 1024
 
 
 def plan(rnn: int, fc: int, n_classes: int, aux_d: int, n_mels: int, n_folds: int,
@@ -97,7 +139,9 @@ def plan(rnn: int, fc: int, n_classes: int, aux_d: int, n_mels: int, n_folds: in
     weights of ``dtype`` and a card that keeps ``max_blocks`` blocks
     resident in clusters of ``CLUSTER`` (``resident_blocks``; at most its SM
     count). Raises ``ValueError`` when that is less than one cluster, or a
-    block's slices and one 8-fold stage do not fit in shared memory."""
+    block's slices and one 8-fold stage (f32) or ``MIN_SLOTS`` ring tiles
+    (bf16) do not fit in shared memory, or (bf16) a slice is wider than
+    wgmma's N of 32."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"weights must be float32 or bfloat16, not {dtype}")
     wb = 2 if dtype == torch.bfloat16 else 4
@@ -110,26 +154,48 @@ def plan(rnn: int, fc: int, n_classes: int, aux_d: int, n_mels: int, n_folds: in
     g = _ceil(max(_ceil(rnn, nu), _ceil(fc, nv), _ceil(n_classes, nq)), CLUSTER) * CLUSTER
     k0 = 1 + n_mels + aux_d
     rows = (nu, 3 * nu, 3 * nu, 3 * nu, 3 * nu, nv, nv, nq)
+    nbias = 9 * nu + 2 * nv + nq
+    what = f"rnn={rnn}, fc={fc}, classes={n_classes} in {dtype} on {max_blocks} blocks"
+    f = n_folds
+    rs, fs = _ceil(rnn, 8) * 8, _ceil(fc, 8) * 8
+    # a layer runs in every block of a cluster that owns some of it
+    unit_blocks, fc_blocks, class_blocks = (_ceil(_ceil(width, per), CLUSTER) * CLUSTER
+                                            for width, per in ((rnn, nu), (fc, nv),
+                                                               (n_classes, nq)))
+    if wb == 2:
+        if max(_ceil(r, 8) * 8 for r in rows) > 32:
+            raise ValueError(f"the sampler cannot place {what}: a slice of more than 32 rows")
+        kr, kf, ka, ki = (_ceil(k, TILE) for k in (rnn, fc, aux_d, n_mels + aux_d))
+        weights = _ring_weight_bytes(rows, _ring_blocks(rnn, fc, aux_d, n_mels))
+        slots = MAX_SLOTS
+        while slots >= MIN_SLOTS and _ring_bytes(weights, slots, nbias) > SMEM_LIMIT:
+            slots -= 1
+        if slots < MIN_SLOTS:
+            raise ValueError(
+                f"the sampler cannot place {what}: a block's weight slices and {MIN_SLOTS} ring "
+                f"tiles need {_ring_bytes(weights, MIN_SLOTS, nbias)} B of shared memory, "
+                f"more than {SMEM_LIMIT}")
+        mt = _ceil(max(f, 1), TILE)
+        return Plan(grid=g, nu=nu, nv=nv, nq=nq, folds=f, fchunk=mt * TILE, slots=slots,
+                    smem=_ring_bytes(weights, slots, nbias),
+                    exchange_elems=2 * mt * (5 * kr + 2 * kf) * TILE * TILE, arg_elems=2 * f,
+                    state_elems=g * f * (12 * nu + nq),
+                    exchange_bytes=f * wb * (5 * rnn + 2 * fc) + 8 * f,
+                    # the rows of folds < F of every tile a block takes
+                    staged_bytes=f * TILE * wb * (unit_blocks * (4 * kr + ki + ka)
+                                                  + fc_blocks * (kr + kf + 2 * ka)
+                                                  + class_blocks * kf) + g * 8 * f)
     ks = [_ceil(k, 16) * 16 + 16 // wb
           for k in (k0, rnn, rnn, rnn + aux_d, rnn, rnn + aux_d, fc + aux_d, fc)]
-    nbias = 9 * nu + 2 * nv + nq
     fchunk = _ceil(max(n_folds, 1), 8) * 8
     while fchunk >= 8 and _smem_bytes(rows, ks, max(ks), fchunk, nbias, wb) > SMEM_LIMIT:
         fchunk -= 8
     if fchunk < 8:
         raise ValueError(
-            f"the sampler cannot place rnn={rnn}, fc={fc}, classes={n_classes} in "
-            f"{dtype} on {max_blocks} blocks: a block's weight slices and one 8-fold stage need "
+            f"the sampler cannot place {what}: a block's weight slices and one 8-fold stage need "
             f"{_smem_bytes(rows, ks, max(ks), 8, nbias, wb)} B of shared memory, "
             f"more than {SMEM_LIMIT}")
-    rs, fs = _ceil(rnn, 8) * 8, _ceil(fc, 8) * 8
-    f = n_folds
-    # a layer runs in every block of a cluster that owns some of it
-    unit_blocks, fc_blocks, class_blocks = (_ceil(_ceil(width, per), CLUSTER) * CLUSTER
-                                            for width, per in ((rnn, nu), (fc, nv),
-                                                               (n_classes, nq)))
-    return Plan(grid=g, nu=nu, nv=nv, nq=nq,
-                fchunk=fchunk,
+    return Plan(grid=g, nu=nu, nv=nv, nq=nq, folds=f, fchunk=fchunk, slots=0,
                 smem=_smem_bytes(rows, ks, max(ks), fchunk, nbias, wb),
                 exchange_elems=2 * f * (5 * rs + 2 * fs), arg_elems=2 * f,
                 state_elems=g * f * (12 * nu + nq),
@@ -278,6 +344,35 @@ def _check(weights, mels, aux, n_classes):
         raise ValueError(f"aux width {aux.shape[2]} is not 4·aux_d")
 
 
+def cond_tiles(mels: torch.Tensor, aux: torch.Tensor, steps: int = 256) -> torch.Tensor:
+    """The conditioning as the bf16 kernel's ring takes it: mels (F, T, M)
+    and aux (F, T, 4·aux_d) → (T, ⌈F/64⌉, KC, 64, 64) bf16, per step and
+    64-fold tile the column blocks [mel, a1] (padded to a multiple of 64),
+    then a2, a3 and a4 (each padded), each 64 x 64 block under the 128-byte
+    swizzle (16-byte chunk j of row r at j ^ (r mod 8)), folds past F zero.
+    Built ``steps`` steps at a time, so that the copy in between stays
+    small."""
+    f, t_len, m = mels.shape
+    a = aux.shape[2] // 4
+    mt, ki, ka = _ceil(f, TILE), _ceil(m + a, TILE), _ceil(a, TILE)
+    kc = ki + 3 * ka
+    dev = mels.device
+    out = torch.empty((t_len, mt, kc, TILE, TILE), dtype=torch.bfloat16, device=dev)
+    rows = torch.arange(TILE, device=dev)
+    chunk = (torch.arange(8, device=dev)[None, :] ^ (rows[:, None] % 8))  # (64 rows, 8)
+    # where each part's columns start, in the [mel, a1 | a2 | a3 | a4] blocks
+    starts = [(0, mels, 0, m), (m, aux, 0, a)] + [
+        ((ki + (k - 1) * ka) * TILE, aux, k * a, a) for k in (1, 2, 3)]
+    for t0 in range(0, t_len, steps):
+        t1 = min(t0 + steps, t_len)
+        flat = torch.zeros((t1 - t0, mt * TILE, kc * TILE), dtype=torch.bfloat16, device=dev)
+        for col, src, off, width in starts:
+            flat[:, :f, col:col + width] = src[:, t0:t1, off:off + width].transpose(0, 1)
+        tiles = flat.view(t1 - t0, mt, TILE, kc, TILE // 8, 8).permute(0, 1, 3, 2, 4, 5)
+        out[t0:t1] = tiles[:, :, :, rows[:, None], chunk].reshape(t1 - t0, mt, kc, TILE, TILE)
+    return out
+
+
 def _launch(lib: ctypes.CDLL, weights, mels, aux, seed, n_classes, greedy,
             time_major) -> torch.Tensor:
     """Plan, lay out the conditioning, allocate the workspaces and launch."""
@@ -286,8 +381,11 @@ def _launch(lib: ctypes.CDLL, weights, mels, aux, seed, n_classes, greedy,
     f, t_len, m = mels.shape
     aux_d = aux.shape[2] // 4
     rnn, fc = weights["I_w"].shape[1], weights["fc1_w"].shape[1]
-    pl = plan(rnn, fc, n_classes, aux_d, m, f, wdt, resident_blocks(dev, wdt, time_major))
-    if time_major:
+    pl = plan(rnn, fc, n_classes, aux_d, m, f, wdt, resident_blocks(dev, wdt))
+    if wdt == torch.bfloat16:
+        # both layouts as the ring's tiles, rounded to bf16: one copy
+        mels_t, aux_t = cond_tiles(mels, aux), None
+    elif time_major:
         # (F, T, D) → (T, F, D) in the weight dtype: one copy, and the
         # per-step rows of all folds are then adjacent
         mels_t = mels.to(wdt).transpose(0, 1).contiguous()
@@ -306,10 +404,11 @@ def _launch(lib: ctypes.CDLL, weights, mels, aux, seed, n_classes, greedy,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.wavernn_sample_launch(
-            mels_t.data_ptr(), aux_t.data_ptr(), ptrs, labels.data_ptr(), xch.data_ptr(),
+            mels_t.data_ptr(), aux_t.data_ptr() if aux_t is not None else None, ptrs,
+            labels.data_ptr(), xch.data_ptr(),
             arg.data_ptr(), state.data_ptr(), bar.data_ptr(),
             f, t_len, m, aux_d, rnn, fc, n_classes, pl.grid, pl.nu, pl.nv, pl.nq, pl.fchunk,
-            pl.smem, int(wdt == torch.bfloat16), int(greedy), int(time_major),
+            pl.slots, pl.smem, int(wdt == torch.bfloat16), int(greedy), int(time_major),
             int(seed) & (2**64 - 1), stream)
     if err != 0:
         raise RuntimeError(f"wavernn_sample kernel launch failed: CUDA error {err} "
@@ -324,12 +423,16 @@ def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: to
 
     On CUDA tensors this launches the Hopper kernel and counts the launch by
     layout, in ``wavernn_sample.launches`` (time-major) or
-    ``wavernn_sample.launches_fold_major``; on CPU tensors it runs the plain
-    version.
-    ``time_major`` streams the conditioning as one (T, F, D) copy in the
-    weight dtype, as ``_kernel_v2`` does; ``time_major=False`` reads the
-    (F, T, D) conditioning in place in f32, as ``_kernel`` does. Both round
-    it to the weight dtype before the products, so the labels are the same.
+    ``wavernn_sample.launches_fold_major``, and, when its products ran on the
+    tensor cores (bf16 weights), in ``wavernn_sample.launches_tensor_core``
+    and in this thread's ``tensor_core_launches()``; on CPU tensors it runs
+    the plain version.
+    With f32 weights ``time_major`` streams the conditioning as one
+    (T, F, D) copy, as ``_kernel_v2`` does, and ``time_major=False`` reads
+    the (F, T, D) conditioning in place, as ``_kernel`` does; with bf16
+    weights both layouts are first copied into the tiles the kernel's ring
+    streams (``cond_tiles``). Every path rounds the conditioning to the
+    weight dtype before the products, so the labels are the same.
     Raises ``ValueError`` before any launch for widths ``plan`` cannot
     place, and ``RuntimeError`` with the CUDA error when the launch is
     refused (there is no fallback)."""
@@ -346,18 +449,28 @@ def wavernn_sample(weights: Dict[str, torch.Tensor], mels: torch.Tensor, aux: to
         wavernn_sample.launches += 1
     else:
         wavernn_sample.launches_fold_major += 1
+    if weights["I_w"].dtype == torch.bfloat16:
+        wavernn_sample.launches_tensor_core += 1
+        _counts.tensor_core = tensor_core_launches() + 1
     return labels
 
 
 wavernn_sample.launches = 0
 wavernn_sample.launches_fold_major = 0
+wavernn_sample.launches_tensor_core = 0
 
 
-def resident_blocks(device, dtype: torch.dtype = torch.bfloat16, time_major: bool = True) -> int:
-    """The blocks of the kernel (for weights of ``dtype`` and this layout)
-    that the CUDA card ``device`` keeps resident at once in clusters of
-    ``CLUSTER``: the ``max_blocks`` of ``plan``. Builds the kernel if
-    needed."""
+def tensor_core_launches() -> int:
+    """The kernel's launches so far on the calling thread whose products ran
+    on the tensor cores (a thread's count, so that a caller can tell its own
+    launch's path while other threads launch too)."""
+    return getattr(_counts, "tensor_core", 0)
+
+
+def resident_blocks(device, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The blocks of the kernel for weights of ``dtype`` that the CUDA card
+    ``device`` keeps resident at once in clusters of ``CLUSTER``: the
+    ``max_blocks`` of ``plan``. Builds the kernel if needed."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"resident_blocks needs a CUDA device, not {dev}")
@@ -365,8 +478,7 @@ def resident_blocks(device, dtype: torch.dtype = torch.bfloat16, time_major: boo
     lib = _bind(load("wavernn_sample"))
     out = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = lib.wavernn_sample_resident_blocks(int(dtype == torch.bfloat16), int(time_major),
-                                                 ctypes.byref(out))
+        err = lib.wavernn_sample_resident_blocks(int(dtype == torch.bfloat16), ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"querying the sampler's resident blocks failed: CUDA error {err} "
                            f"({lib.wavernn_sample_error_string(err).decode()})")
@@ -377,10 +489,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.wavernn_sample_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p] + [i] * 16 + [ctypes.c_ulonglong, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p] + [i] * 17 + [ctypes.c_ulonglong, p]
         fn.restype = i
         lib.wavernn_sample_error_string.argtypes = [i]
         lib.wavernn_sample_error_string.restype = ctypes.c_char_p
-        lib.wavernn_sample_resident_blocks.argtypes = [i, i, p]
+        lib.wavernn_sample_resident_blocks.argtypes = [i, p]
         lib.wavernn_sample_resident_blocks.restype = i
     return lib

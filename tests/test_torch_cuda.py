@@ -186,23 +186,97 @@ def test_kernel_at_odd_widths(card, rnn):
 
 
 def test_kernel_stages_folds_in_chunks(card):
-    """200 folds exceed one shared-memory stage of activations (144 folds in
-    bf16, 40 in f32), so every layer is staged in chunks: held against the
-    plain version by the gap rule."""
+    """200 folds exceed one shared-memory stage of activations in f32 (40
+    folds), so every f32 layer is staged in chunks; in bf16 they stream
+    through the ring in one pass of four 64-fold tiles, the last of 8: held
+    against the plain version by the gap rule."""
     model, mels, aux = _case(card, {}, 200, 24, seed=4)
     for dtype, bound in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
         w = pack_wavernn_weights(model, dtype)
         pl = plan(512, 512, 512, 32, 80, 200, dtype, resident_blocks(card, dtype))
-        assert pl.fchunk < 200
+        if dtype == torch.float32:
+            assert pl.fchunk < 200 and pl.slots == 0
+        else:
+            assert pl.fold_tiles() == [(0, 64), (64, 128), (128, 192), (192, 200)]
         k = wavernn_sample(w, mels, aux, 2)
         p, gaps = wavernn_sample_plain(w, mels, aux, 2, return_gaps=True)
         _hold(k, p, gaps, bound)
 
 
+@pytest.mark.parametrize("n_folds", [1, 12, 58, 64, 65, 186, 256])
+def test_ring_matches_plain_across_fold_tiles(card, n_folds):
+    """bf16 weights take the tensor-core ring: one fold, a partial tile, a
+    whole one and one fold past it, the cell's 186 (three tiles, the last of
+    58) and 256 (four tiles: two rounds on the three consumer warpgroups),
+    greedy and sampled, in both layouts: held against the plain version by
+    the gap rule, the two layouts equal, every launch counted as a
+    tensor-core launch."""
+    model, mels, aux = _case(card, {}, n_folds, 24, seed=100 + n_folds)
+    w = pack_wavernn_weights(model)
+    pl = plan(512, 512, 512, 32, 80, n_folds, torch.bfloat16, resident_blocks(card))
+    assert pl.slots >= 8 and len(pl.fold_tiles()) == -(-n_folds // 64)
+    before = wavernn_sample.launches_tensor_core
+    for greedy in (True, False):
+        p, gaps = wavernn_sample_plain(w, mels, aux, 9, greedy=greedy, return_gaps=True)
+        k = wavernn_sample(w, mels, aux, 9, greedy=greedy)
+        assert k.shape == (n_folds, 24) and k.dtype == torch.int32
+        _hold(k, p, gaps, 5e-2)
+        assert torch.equal(k, wavernn_sample(w, mels, aux, 9, greedy=greedy, time_major=False))
+    assert wavernn_sample.launches_tensor_core == before + 4
+
+
+def test_f32_mode_stays_on_fma_tiles(card):
+    """f32 weights (the parity mode; wgmma has no f32) keep the staged FMA
+    tiles: their launches count as launches but not as tensor-core ones,
+    and a bf16 launch does, on this thread too."""
+    from mockingbird_tpu_torch.ops.wavernn_sample import tensor_core_launches
+    model, mels, aux = _case(card, SMALL, 5, 16)
+    before = (wavernn_sample.launches, wavernn_sample.launches_tensor_core,
+              tensor_core_launches())
+    wavernn_sample(pack_wavernn_weights(model, torch.float32), mels, aux, 0)
+    assert (wavernn_sample.launches, wavernn_sample.launches_tensor_core,
+            tensor_core_launches()) == (before[0] + 1, before[1], before[2])
+    wavernn_sample(pack_wavernn_weights(model), mels, aux, 0)
+    assert (wavernn_sample.launches, wavernn_sample.launches_tensor_core,
+            tensor_core_launches()) == (before[0] + 2, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_k1_launch_span_records_tensor_core(card, dtype):
+    """The vocoder's ``k1.launch`` span, recorded under a profiler session,
+    has ``tensor_core`` 1 for a launch on the wgmma ring (bf16 weights, the
+    vocoder's own) and 0 for one on the FMA tiles (f32)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mockingbird_tpu_torch import tracing
+    from mockingbird_tpu_torch.models.vocoder import WaveRnnVocoder
+    voc = WaveRnnVocoder(cfg=dict(SMALL, seq_len=64, gen_target_tpu=400, gen_overlap_tpu=50),
+                         verbose=False, device=card)
+    voc.packed = pack_wavernn_weights(voc.model, dtype)
+    mels = [np.random.RandomState(k).randn(80, 60).astype(np.float32) for k in range(2)]
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        voc.infer_waveform_batch(mels, max_lanes=7)
+    launches = [s for s in tracing.spans() if s.name == "k1.launch"]
+    assert launches and all(s.attrs["tensor_core"] == int(dtype == torch.bfloat16)
+                            for s in launches)
+
+
+def test_smoke_holds_k1_at_the_cells_fold_count(card):
+    """``chip_smoke.hold_k1_call``, as the smoke runs it on a path's call,
+    at the WaveRNN cell's 186 folds: greedy and sampled, f32 and bf16, no
+    label differs from the plain version's before a fold's first near-tie."""
+    import chip_smoke
+    model, mels, aux = _case(card, {}, 186, 16, seed=186)
+    err = chip_smoke.hold_k1_call(pack_wavernn_weights(model, torch.float32),
+                                  pack_wavernn_weights(model), mels, aux, 11, 512)
+    assert err == 0.0
+
+
 def test_kernel_refuses_a_width_it_cannot_place(card):
     """rnn = fc = 2048 in bf16 puts 16 GRU units (48 rows of 2048) of each
-    of four matrices on a block, beyond shared memory: the plan raises
-    ValueError before any launch."""
+    of four matrices on a block, past wgmma's N of 32 rows and beyond shared
+    memory: the plan raises ValueError before any launch."""
     rnn, fc, a = 2048, 2048, 32
     shapes = {"I_w": (1 + 80 + a, rnn), "I_b": (rnn,), "g1_wi": (rnn, 3 * rnn),
               "g1_bi": (3 * rnn,), "g1_wh": (rnn, 3 * rnn), "g1_bn": (rnn,),

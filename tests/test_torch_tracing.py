@@ -162,8 +162,9 @@ def test_vocode_device_records_its_own_span(fused, pcm_format):
 def test_staged_call_span_tree(staged):
     found = _tree(staged, STAGED_CHILDREN, fused=False)
     launches = [s for s in found if s.name == "k1.launch"]
-    # 200 frames × hop 16 = 3200 samples: 7 folds of 400 + 2·50 an utterance
-    assert [s.attrs for s in launches] == [{"F": 7 * len(TEXTS), "T": 500}]
+    # 200 frames × hop 16 = 3200 samples: 7 folds of 400 + 2·50 an utterance;
+    # on the CPU the plain version runs, not the tensor cores
+    assert [s.attrs for s in launches] == [{"F": 7 * len(TEXTS), "T": 500, "tensor_core": 0}]
     names = [s.name for s in sorted(found, key=lambda s: s.start_ns)
              if s.name.startswith(("wavernn.", "k1."))]
     assert names == ["wavernn.fold", "k1.launch", "wavernn.labels_wait", "wavernn.finalize"]
